@@ -3,34 +3,49 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA Poseidon kernel from ``imt_tpu_torch/ops/csrc``, holds every
-entry point of it bit for bit against its plain torch version on the card,
-drives the port's main path (dense ``IndexedMerkleTree.insert_batch`` at
-depth 24, K = 4096) and checks what comes out, then times the path and the
-kernels.  Phases, in order; any failure raises and the exit code is not 0:
+Builds the CUDA kernels from ``imt_tpu_torch/ops/csrc`` (one nvcc per
+source, in parallel), holds every entry point bit for bit against its plain
+torch version on the card, drives the port's three paths and checks what
+comes out, then times the paths and the kernels.  Phases, in order; any
+failure raises and the exit code is not 0:
 
-1. device: CUDA present; the card's name and power limit (nvidia-smi);
-2. build: nvcc, with the build time and the ptxas register report;
-3. kernel vs plain on CUDA tensors, bit for bit, at a ragged width of 65537
-   lanes with edge values and at the main path's own widths, and the
-   H(0,0,0) and poseidonperm_x5_254_3 anchors;
-4. the slice: four depth-24 batches of 4096 values with planted duplicates
-   and zeros (acceptance against set semantics, root against a full
-   rebuild, the linked list walked in order, launch counts), then a depth-6
-   replay against the python-int oracle;
-5. numbers: depth-24 inserts/s, and each kernel's time beside its plain
-   version's.
+1. device: CUDA present; the card's name, power limit and SM clock; the
+   least multiply-adds per permutation that the bounds count, beside the
+   kernel's own;
+2. build: nvcc, with the build times, the ptxas register report, and the
+   SASS census of the Poseidon permutation (its multiply-adds, counted in
+   the built library, against the source's count);
+3. Poseidon kernel vs plain, bit for bit, at a ragged width of 65537 lanes
+   with edge values and at the main path's own widths, and the H(0,0,0)
+   and poseidonperm_x5_254_3 anchors;
+3b. every probe body (``csrc/vpu_roofline.cu``) vs plain, bit for bit, at
+   [48, 65537] with k = 64 and k = 1, and at [48, 65536] with k = 4;
+4. the batched path: four depth-24 batches of 4096 values with planted
+   duplicates and zeros (acceptance against set semantics, root against a
+   full rebuild, the linked list walked in order, launch counts), then a
+   depth-6 replay against the python-int oracle;
+4b. the sequential witness path on that depth-24 tree: insert_seq of 64
+   values (duplicates, zeros, present values; every accepted witness passes
+   insert_leaf, the roots chain, the root equals a full rebuild),
+   non_inclusion_witness of 4096 queries (ok = absent, verify_non_inclusion
+   true on every ok lane and false once a sibling is flipped), MerkleTree of
+   2^16 leaves (proofs verify, a corrupted one fails), and the depth-6
+   golden path [30, 10, 20, 5, 50, 35] through insert against the oracle;
+5. numbers: depth-24 inserts/s (batched and sequential), non-inclusion
+   witnesses/s, the probe's rates per body (its own path), and each
+   kernel's time beside its plain version's and its bound, the Poseidon
+   entry points also at a width that fills the card.
 
-The line before the last is the kernels' JSON record (the main path's
-kernels, then the entry points it does not run); the last line is
-``{"ok": true, "device": {...}}``.  Without CUDA it exits non-zero and
-prints no result.
+The line before the last is the kernels' JSON record (the paths' kernels,
+then the entry point no path runs); the last line is ``{"ok": true,
+"device": {...}}``.  Without CUDA it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -41,6 +56,13 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 DEPTH, K, N_BATCHES = 24, 4096, 4
 RAGGED = 65537
 TIMING_WIDTH = 8192
+FILL_WIDTH = 1 << 17          # 132 SMs x ~8 blocks of 128 lanes
+SEQ_VALUES = 64
+QUERIES = 4096
+MERKLE_LEAVES = 1 << 16
+GOLDEN = [30, 10, 20, 5, 50, 35]
+PROBE_SHAPE = (48, 65536)
+PROBE_K = 64                  # k of the probe bodies' kernel-vs-plain times
 SEED = 20260601
 
 ANCHOR_H000 = 1960587138944869480785025106734196872454309951825657414575195034687326603497
@@ -50,25 +72,72 @@ TV_PERM_012 = [
     0x0e7ae82e40091e63cbd4f16a6d16310b3729d4b6e138fcf54110e2867045a30c,
 ]
 
-# entry point -> (TPU code it replaces, on the main path?).  hash2 and hash3
-# are two modes of _hash_fn (pallas_call :1256), permute_n is _permute_fn
-# (pallas_call :1216); the TPU ran the conversions as XLA around the kernel.
-KERNELS = {
-    "hash3_leaf": ("imt_tpu/ops/poseidon_rns_pallas.py:1240", True),
-    "hash2_nodes": ("imt_tpu/ops/poseidon_rns_pallas.py:1240", True),
-    "nodes_to_limbs": ("imt_tpu/ops/field_rns.py:262", True),
-    "permute_n": ("imt_tpu/ops/poseidon_rns_pallas.py:1199", False),
-    "limbs_to_nodes": ("imt_tpu/ops/field_rns.py:249", False),
+POSEIDON_SOURCE = "imt_tpu_torch/ops/csrc/poseidon_bn254.cu"
+ROOFLINE_SOURCE = "imt_tpu_torch/ops/csrc/vpu_roofline.cu"
+# Poseidon entry point -> (TPU code it replaces, the paths that run it).
+# hash2 and hash3 are two modes of _hash_fn (pallas_call :1256), permute_n
+# is _permute_fn (pallas_call :1216); the TPU ran the conversions as XLA
+# around the kernel.
+POSEIDON = {
+    "hash3_leaf": ("imt_tpu/ops/poseidon_rns_pallas.py:1240",
+                   ("insert_batch", "sequential")),
+    "hash2_nodes": ("imt_tpu/ops/poseidon_rns_pallas.py:1240",
+                    ("insert_batch", "sequential")),
+    "nodes_to_limbs": ("imt_tpu/ops/field_rns.py:262",
+                       ("insert_batch", "sequential")),
+    "limbs_to_nodes": ("imt_tpu/ops/field_rns.py:249", ("sequential",)),
+    "permute_n": ("imt_tpu/ops/poseidon_rns_pallas.py:1199", ()),
 }
-SOURCE = "imt_tpu_torch/ops/csrc/poseidon_bn254.cu"
+ROOFLINE_REPLACES = "tools/vpu_roofline.py:83"
+
+# What the port's kernel executes today, counted from the source and held
+# against its SASS in phase 2: a permutation is 828 Montgomery products (8
+# full rounds x 18, 57 partial x 12), each 128 wide (32x32->64-bit)
+# multiply-adds and 8 32-bit ones (mont_mul, poseidon_bn254.cu:114-144).
+MONT_PER_PERM = 828
+WIDE_PER_MONT, NARROW_PER_MONT = 128, 8
+
+# What the bound counts: the least work of each function among the
+# schedules in the repo.  8 x 32-bit limbs: a 256x256-bit product is 64
+# wide multiply-adds, a square 36 (each cross product once, doubled by a
+# shift), a Montgomery reduction 64 wide and 8 32-bit ones.  An S-box x^5
+# is two squares and a product, each reduced; a dot of an MDS row sums its
+# three products unreduced and reduces once; the 57 partial rounds take
+# imt_tpu's sparse form with lazy column words (permute_opt_lazy,
+# imt_tpu/ops/poseidon_opt.py:160) at the refresh period that needs least.
+R_F, R_P = 8, 57
+PRODUCT, SQUARE, REDC_WIDE, REDC_NARROW = 64, 36, 64, 8
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True).stdout
-    return out.strip().splitlines()[0]
+def least_perm_work(g: int) -> tuple:
+    """(wide, 32-bit) multiply-adds of one permutation whose partial rounds
+    refresh their column words every g rounds."""
+    sbox_w, sbox_n = 2 * SQUARE + PRODUCT + 3 * REDC_WIDE, 3 * REDC_NARROW
+    wide = R_F * 3 * (sbox_w + 3 * PRODUCT + REDC_WIDE)
+    narrow = R_F * 3 * (sbox_n + REDC_NARROW)
+    for start in range(0, R_P, g):
+        n = min(g, R_P - start)
+        # n S-boxes; row 0 at step d sums 3 + d products (m00 s, v.x and
+        # the d combined terms) into one reduction; the two columns take
+        # n products each and one reduction each at the refresh
+        wide += n * sbox_w + sum(3 + d for d in range(n)) * PRODUCT \
+            + n * REDC_WIDE + 2 * n * PRODUCT + 2 * REDC_WIDE
+        narrow += n * sbox_n + n * REDC_NARROW + 2 * REDC_NARROW
+    return wide, narrow
+
+
+PERM_WORK = min((least_perm_work(g) for g in range(1, 12)), key=sum)
+TO_MONT = (PRODUCT + REDC_WIDE, REDC_NARROW)      # x R^2, reduced
+FROM_MONT = (REDC_WIDE, REDC_NARROW)              # x, reduced
+LANE_WORK = {
+    "permute_n": PERM_WORK,
+    "hash2_nodes": tuple(2 * w for w in PERM_WORK),
+    "hash3_leaf": tuple(2 * w + 3 * c for w, c in zip(PERM_WORK, TO_MONT)),
+    "limbs_to_nodes": TO_MONT, "nodes_to_limbs": FROM_MONT}
+# Bytes: each input read once, the output written once.
+BYTES_PER_LANE = {"permute_n": 192, "hash2_nodes": 96, "hash3_leaf": 224,
+                  "limbs_to_nodes": 96, "nodes_to_limbs": 96}
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet
 
 
 def seeded_limbs(rng, width: int, bits: int = 254) -> np.ndarray:
@@ -86,21 +155,113 @@ def int_limbs(v: int) -> np.ndarray:
                     dtype=np.int32)
 
 
-def max_abs_err(a, b) -> int:
+def max_abs_err(a, b):
+    if a.dtype.is_floating_point:
+        return float((a.double() - b.double()).abs().max().item())
     return int((a.long() - b.long()).abs().max().item())
 
 
+# -- phase 2: the SASS census of the permutation -----------------------------
+
+_SASS_INS = re.compile(
+    r"^\s+/\*([0-9a-f]{4,})\*/\s+(@!?U?P[0-9T]\s+)?([A-Z0-9_.]+)\s*([^;]*);")
+
+
+def sass_census(sass: str) -> dict:
+    """Instructions per permutation in permute_kernel's SASS: the round
+    loop (the innermost backward branch) runs 65 times, and the block its
+    one forward branch skips runs on the 8 full rounds (or, were the branch
+    the other way round, the 57 partial ones: the trip count that makes the
+    wide multiplies come out at 828 products' worth is taken, and if
+    neither does, the census fails).  Returns counts by opcode."""
+    body = sass[sass.index("permute_kernelE"):]
+    body = body[:body.find("Function :")] if "Function :" in body else body
+    ins = []
+    for line in body.splitlines():
+        m = _SASS_INS.match(line)
+        if m:
+            ins.append((int(m.group(1), 16), m.group(3), m.group(4)))
+    branches = []
+    for addr, op, args in ins:
+        if op == "BRA":
+            t = re.match(r"\s*(0x[0-9a-f]+)", args)
+            if t:
+                branches.append((addr, int(t.group(1), 16)))
+    loops = sorted((a - t, t, a) for a, t in branches if t < a)
+    if not loops:
+        raise AssertionError("no loop in permute_kernel's SASS")
+    _, lo, hi = loops[0]
+    skips = [(a, t) for a, t in branches if lo <= a < t <= hi]
+    if len(skips) != 1:
+        raise AssertionError(f"expected one branch in the round loop, got "
+                             f"{len(skips)}")
+    s_lo, s_hi = skips[0][0] + 16, skips[0][1]
+
+    def count(a, b):
+        c = {}
+        for addr, op, _ in ins:
+            if a <= addr < b:
+                c[op] = c.get(op, 0) + 1
+        return c
+
+    every, cond = count(lo, hi + 16), count(s_lo, s_hi)
+    for k in cond:
+        every[k] -= cond[k]
+    wide_want = MONT_PER_PERM * WIDE_PER_MONT
+    for cond_trips in (8, 57):
+        per = {k: 65 * every.get(k, 0) + cond_trips * cond.get(k, 0)
+               for k in set(every) | set(cond)}
+        wide = per.get("IMAD.WIDE.U32", 0) + per.get("IMAD.HI.U32", 0)
+        if wide == wide_want:
+            return per
+    raise AssertionError(f"SASS wide multiplies per permutation differ from "
+                         f"the source's {wide_want}")
+
+
+def phase_build(_build) -> None:
+    t0 = time.perf_counter()
+    _build.build()
+    secs = {n: round(s, 1) for n, s in _build.build_seconds.items()}
+    print(f"phase 2: kernel libraries built (in parallel) and loaded in "
+          f"{time.perf_counter() - t0:.1f} s (nvcc s {secs})")
+    for name, log in _build.build_log.items():
+        ptxas = [ln.strip() for ln in log.splitlines()
+                 if "registers" in ln or "spill" in ln]
+        print(f"phase 2: ptxas {name}: {' | '.join(ptxas)}")
+    cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    sass = subprocess.run(
+        [cuobjdump, "-sass", _build.library_path("poseidon")],
+        capture_output=True, text=True, timeout=300, check=True).stdout
+    per = sass_census(sass)
+    imad = sum(v for k, v in per.items() if k.startswith("IMAD"))
+    narrow = per.get("IMAD", 0)
+    if narrow < MONT_PER_PERM * NARROW_PER_MONT:
+        raise AssertionError(f"SASS 32-bit IMADs per permutation {narrow}, "
+                             f"fewer than the source's "
+                             f"{MONT_PER_PERM * NARROW_PER_MONT}")
+    top = sorted(per.items(), key=lambda kv: -kv[1])[:12]
+    print(f"phase 2: SASS census per permutation: {sum(per.values())} "
+          f"instructions, {imad} of the IMAD family (IMAD.WIDE.U32 "
+          f"{per.get('IMAD.WIDE.U32', 0)} + IMAD.HI.U32 "
+          f"{per.get('IMAD.HI.U32', 0)} = {MONT_PER_PERM} x {WIDE_PER_MONT} "
+          f"wide multiply-adds, as the source counts; IMAD {narrow}: the "
+          f"source's {MONT_PER_PERM} x {NARROW_PER_MONT} 32-bit ones and "
+          f"address arithmetic); top: {top}")
+
+
+# -- phase 3 / 3b: kernels vs plain ------------------------------------------
+
 def phase_kernel_vs_plain(torch, pc, plain, field) -> dict:
-    """Every entry point against its plain version on CUDA tensors: at a
-    ragged width (edge values in the first lanes), then at the main path's
-    own widths (hash3 over the 2K dirty leaves, hash2 over the K low leaves
-    and the first slab level, the root decode)."""
+    """Every Poseidon entry point against its plain version on CUDA tensors:
+    at a ragged width (edge values in the first lanes), then at the main
+    path's own widths (hash3 over the 2K dirty leaves, hash2 over the K low
+    leaves and the first slab level, the root decode)."""
     rng = np.random.default_rng(SEED)
     cols = seeded_limbs(rng, RAGGED)
     for i, v in enumerate([0, 1, field.P - 1, field.P, (1 << 256) - 1]):
         cols[:, i] = int_limbs(v)
     dev = torch.device("cuda")
-    errs = {name: 0 for name in KERNELS}
+    errs = {name: 0 for name in POSEIDON}
     for width in (RAGGED, 2 * K, K, K // 2 + 1, 1):
         L = [torch.as_tensor(np.roll(cols, s, axis=1)[:, :width], device=dev)
              for s in (0, 7, 101)]
@@ -147,6 +308,31 @@ def phase_kernel_vs_plain(torch, pc, plain, field) -> dict:
     return errs
 
 
+def phase_roofline_vs_plain(torch, vr, vc) -> dict:
+    """Every probe body, kernel against plain, on the card: tolerance 0 (the
+    f32 bodies round each op once in both, the integer bodies wrap)."""
+    errs = {}
+    for name in vr.BODIES:
+        errs[name] = 0
+        for rows, b, k in ((48, RAGGED, 64), (48, RAGGED, 1),
+                           (PROBE_SHAPE[0], PROBE_SHAPE[1], 4)):
+            x = vr.seeded_input(name, rows, b, seed=SEED)
+            got = vc.roofline(name, x, k)
+            want = vr.plain(name, x, k)
+            torch.cuda.synchronize()
+            err = max_abs_err(got, want)
+            errs[name] = max(errs[name], err)
+            if err != 0 or not torch.equal(got, want):
+                raise AssertionError(f"roofline {name} [{rows}, {b}] k={k}: "
+                                     f"kernel differs from plain ({err})")
+        print(f"phase 3b: roofline {name} [48, {RAGGED}] k=64 and k=1, "
+              f"[{PROBE_SHAPE[0]}, {PROBE_SHAPE[1]}] k=4: kernel vs plain "
+              f"max_abs_err {errs[name]} (tolerance 0, bit-exact)")
+    return errs
+
+
+# -- phase 4: the batched path -----------------------------------------------
+
 def plant(rng, batch: np.ndarray, prev: np.ndarray | None) -> np.ndarray:
     """Plant intra-batch duplicates, zeros and earlier-batch duplicates."""
     b = batch.copy()
@@ -169,10 +355,18 @@ def host_accept(seen: set, values: list[int]) -> list[bool]:
     return ok
 
 
+def full_rebuild_root(field, indexed, tree) -> int:
+    """The root of a tree rebuilt from the leaf state alone."""
+    hashing = indexed.hashing
+    leaves = hashing.hash3_leaf(tree.vals, tree.next_vals, tree.next_idxs)
+    full = indexed._build_levels(leaves, tree.tree_depth)
+    return field.limbs_to_int(hashing.dec_nodes(full[-1])[:, 0].cpu())
+
+
 def phase_slice(torch, pc, field, indexed, reference_oracle) -> dict:
     rng = np.random.default_rng(SEED + 1)
     dev = torch.device("cuda")
-    tree = indexed.IndexedMerkleTree(DEPTH, device=dev)
+    tree = indexed.IndexedMerkleTree(DEPTH)
     batches, prev = [], None
     for _ in range(N_BATCHES):
         b = plant(rng, field.random_limbs(int(rng.integers(1 << 31)), K, 253),
@@ -194,9 +388,7 @@ def phase_slice(torch, pc, field, indexed, reference_oracle) -> dict:
     launches = dict(pc.LAUNCHES)
     print(f"phase 4: depth {DEPTH}, {N_BATCHES} batches of K={K}: launches "
           f"{launches}")
-    for name, (_, on_path) in KERNELS.items():
-        if on_path and launches[name] == 0:
-            raise AssertionError(f"main path never launched {name}")
+    check_launched("insert_batch", launches)
 
     for i, (b, ok) in enumerate(zip(batches, oks)):
         want = host_accept(seen, field.limbs_to_ints(b))
@@ -206,12 +398,8 @@ def phase_slice(torch, pc, field, indexed, reference_oracle) -> dict:
     print(f"phase 4: ok masks equal set semantics ({len(seen)} accepted of "
           f"{N_BATCHES * K})")
 
-    leaves = pc.hash3_leaf(tree.vals, tree.next_vals, tree.next_idxs)
-    full = indexed._build_levels(leaves, DEPTH)
-    rebuilt = field.limbs_to_int(pc.nodes_to_limbs(full[-1])[:, 0].cpu())
-    if rebuilt != root:
+    if full_rebuild_root(field, indexed, tree) != root:
         raise AssertionError("root differs from a full rebuild")
-    del leaves, full
     print(f"phase 4: root equals a full rebuild of 2^{DEPTH} leaves "
           f"({root:#x})")
 
@@ -234,7 +422,14 @@ def phase_slice(torch, pc, field, indexed, reference_oracle) -> dict:
     replay_small(indexed, reference_oracle, dev)
     print("phase 4: depth-6 replay (3 batches of K=8 with duplicates, zeros, "
           "chains) matches the python-int oracle after every batch")
-    return {"launches": launches, "batch_s": times}
+    return {"launches": launches, "batch_s": times, "tree": tree,
+            "seen": seen}
+
+
+def check_launched(path: str, launches: dict) -> None:
+    for name, (_, paths) in POSEIDON.items():
+        if path in paths and launches[name] == 0:
+            raise AssertionError(f"the {path} path never launched {name}")
 
 
 def replay_small(indexed, reference_oracle, dev) -> None:
@@ -268,21 +463,155 @@ def replay_small(indexed, reference_oracle, dev) -> None:
             raise AssertionError("depth-6 replay differs from the oracle")
 
 
-def cuda_ms(torch, fn, reps: int, warmup: int) -> float:
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+# -- phase 4b: the sequential witness path -----------------------------------
+
+def golden_path(indexed, reference_oracle, field, dev) -> None:
+    """[30, 10, 20, 5, 50, 35] through insert into a depth-6 tree on `dev`:
+    after each insert, the root and every witness field must equal the
+    python-int oracle's sequential insert (reference discipline)."""
+    tree = indexed.IndexedMerkleTree(6, device=dev)
+    oracle = reference_oracle.OracleIndexedTree(6)
+    ints = lambda x: field.limbs_to_ints(x.cpu().numpy())
+    for v in GOLDEN:
+        w, o = tree.insert(v), oracle.insert(v)
+        got = dict(
+            ok=bool(w.ok[0]), old_root=ints(w.old_root)[0],
+            low_leaf=(ints(w.low_leaf_val)[0], ints(w.low_leaf_next_val)[0],
+                      ints(w.low_leaf_next_idx)[0]),
+            low_leaf_proof=ints(w.low_leaf_proof[:, :, 0].T),
+            low_leaf_proof_helper=w.low_leaf_proof_helper[:, 0].tolist(),
+            new_root=ints(w.new_root)[0],
+            new_leaf=(ints(w.new_leaf_val)[0], ints(w.new_leaf_next_val)[0],
+                      ints(w.new_leaf_next_idx)[0]),
+            new_leaf_index=int(w.new_leaf_index[0]),
+            new_leaf_proof=ints(w.new_leaf_proof[:, :, 0].T),
+            new_leaf_proof_helper=w.new_leaf_proof_helper[:, 0].tolist(),
+            is_new_leaf_largest=bool(w.is_new_leaf_largest[0]))
+        if got != o:
+            bad = [key for key in o if got[key] != o[key]]
+            raise AssertionError(f"golden path insert {v}: {bad} differ "
+                                 "from the python-int oracle")
+        if tree.get_root_int() != oracle.get_root():
+            raise AssertionError(f"golden path insert {v}: root differs")
 
 
-def phase_numbers(torch, pc, plain, card: str, slice_out: dict) -> dict:
+def phase_sequential(torch, pc, field, indexed, merkle, reference_oracle,
+                     slice_out: dict, dev) -> dict:
+    rng = np.random.default_rng(SEED + 3)
+    tree, seen = slice_out["tree"], slice_out["seen"]
+    present = sorted(seen)
+    vals = [int(v) for v in field.limbs_to_ints(
+        field.random_limbs(int(rng.integers(1 << 31)), SEQ_VALUES, 253))]
+    for i in range(0, 8):                        # duplicates within the run
+        vals[8 + i] = vals[i]
+    for i in range(16, 20):                      # zeros
+        vals[i] = 0
+    for i in range(24, 32):                      # values already present
+        vals[i] = present[int(rng.integers(len(present)))]
+    root0 = tree.get_root_int()
+    torch.cuda.synchronize()
+
+    pc.reset_launch_counts()
+    w = tree.insert_seq(vals)
+    pred = indexed.insert_leaf(
+        w.old_root, w.low_leaf_val, w.low_leaf_next_val, w.low_leaf_next_idx,
+        w.low_leaf_proof, w.low_leaf_proof_helper, w.new_root,
+        w.new_leaf_val, w.new_leaf_next_val, w.new_leaf_next_idx,
+        w.new_leaf_index, w.new_leaf_proof, w.new_leaf_proof_helper,
+        w.is_new_leaf_largest).cpu().numpy()
+    want = host_accept(seen, vals)
+    if w.ok.tolist() != want:
+        raise AssertionError("insert_seq ok mask differs from set semantics")
+    if not pred[w.ok].all():
+        raise AssertionError("an accepted insert_seq witness fails "
+                             "insert_leaf")
+    old = field.limbs_to_ints(w.old_root.cpu().numpy())
+    new = field.limbs_to_ints(w.new_root.cpu().numpy())
+    ok = w.ok.tolist()
+    chain = [new[i] if ok[i] else old[i] for i in range(len(vals))]
+    if old[0] != root0 or chain[:-1] != old[1:] or \
+            chain[-1] != tree.get_root_int():
+        raise AssertionError("insert_seq roots do not chain")
+    seq_root = tree.get_root_int()
+    print(f"phase 4b: insert_seq of {len(vals)} values at depth {DEPTH}: ok "
+          f"mask equals set semantics ({sum(ok)} accepted), every accepted "
+          "witness passes insert_leaf, new_root[i] = old_root[i+1] on "
+          "accepted lanes")
+
+    absent = field.random_limbs(int(rng.integers(1 << 31)), QUERIES // 2, 253)
+    pres = field.ints_to_limbs([present[int(i)] for i in rng.choice(
+        len(present), QUERIES // 2, replace=False)])
+    queries = np.concatenate([pres, absent], axis=1)
+    nw = tree.non_inclusion_witness(queries)
+    is_absent = [v not in seen for v in field.limbs_to_ints(queries)]
+    if nw.ok.tolist() != is_absent:
+        raise AssertionError("non_inclusion_witness ok differs from absence")
+    q = torch.as_tensor(queries, device=dev)
+    args = [nw.root, nw.low_leaf_val, nw.low_leaf_next_val,
+            nw.low_leaf_next_idx, nw.low_leaf_proof, nw.low_leaf_proof_helper,
+            q, nw.is_new_leaf_largest]
+    honest = indexed.verify_non_inclusion(*args).cpu().numpy()
+    bad_proof = nw.low_leaf_proof.clone()
+    bad_proof[3, 0] ^= 1
+    args[4] = bad_proof
+    flipped = indexed.verify_non_inclusion(*args).cpu().numpy()
+    if not honest[nw.ok].all() or flipped[nw.ok].any():
+        raise AssertionError("verify_non_inclusion: honest witness rejected "
+                             "or flipped sibling accepted")
+    print(f"phase 4b: non_inclusion_witness of {QUERIES} queries: ok equals "
+          f"absence ({int(nw.ok.sum())} absent), verify_non_inclusion true on "
+          "every ok lane and false on each once a proof sibling is flipped")
+
+    leaves = seeded_limbs(rng, MERKLE_LEAVES, 253)
+    mt = merkle.MerkleTree.build(leaves, dev)
+    idx = rng.choice(MERKLE_LEAVES, 64, replace=False)
+    proofs, _ = mt.get_proofs(idx)
+    good = mt.verify_proofs(leaves[:, idx], idx, mt.get_root(), proofs)
+    bad = proofs.clone()
+    bad[5, 2, 7] ^= 1
+    corrupted = mt.verify_proofs(leaves[:, idx], idx, mt.get_root(), bad)
+    if not good.all() or corrupted[7] or not corrupted[np.arange(64) != 7] \
+            .all():
+        raise AssertionError("MerkleTree proofs: a good proof fails or the "
+                             "corrupted one verifies")
+    print(f"phase 4b: MerkleTree.build of {MERKLE_LEAVES} leaves: 64 proofs "
+          f"verify, the corrupted one fails (root {mt.get_root_int():#x})")
+
+    golden_path(indexed, reference_oracle, field, dev)
+    launches = dict(pc.LAUNCHES)
+    print(f"phase 4b: depth-6 golden path {GOLDEN} through insert: roots and "
+          f"every witness field equal the python-int oracle's; launches "
+          f"{launches}")
+    check_launched("sequential", launches)
+    if full_rebuild_root(field, indexed, tree) != seq_root:
+        raise AssertionError("insert_seq root differs from a full rebuild")
+    print(f"phase 4b: the root after insert_seq equals a full rebuild of "
+          f"2^{DEPTH} leaves ({seq_root:#x})")
+    return {"launches": launches}
+
+
+# -- phase 5: numbers ---------------------------------------------------------
+
+def poseidon_bound_ms(name: str, width: int, imad_per_s: float):
+    """(ms, what bounds it): the larger of the least multiply-adds (each one
+    IMAD) over the published IMAD rate and the bytes over the HBM rate."""
+    ops_s = width * sum(LANE_WORK[name]) / imad_per_s
+    bytes_s = width * BYTES_PER_LANE[name] / HBM_BYTES_PER_S
+    return (1e3 * max(ops_s, bytes_s),
+            "operations" if ops_s >= bytes_s else "bytes")
+
+
+def roofline_bound_ms(vr, name: str, n: int, k: int, imad_per_s: float):
+    body = vr.BODIES[name]
+    peak = vr.F32_PEAK_PER_S if body.peak_kind == "f32" else imad_per_s
+    ops_s = n * k * body.peak_ops / peak
+    bytes_s = n * 8 / HBM_BYTES_PER_S
+    return (1e3 * max(ops_s, bytes_s),
+            "operations" if ops_s >= bytes_s else "bytes")
+
+
+def phase_numbers(torch, pc, plain, vr, vc, indexed, field, card: str,
+                  clock_mhz: float, slice_out: dict) -> dict:
     bs = slice_out["batch_s"]
     steady = bs[1:]
     print(f"phase 5: depth {DEPTH} insert_batch K={K} wall s per batch "
@@ -291,41 +620,129 @@ def phase_numbers(torch, pc, plain, card: str, slice_out: dict) -> dict:
           f"{len(bs)} [{card}]")
     rng = np.random.default_rng(SEED + 2)
     dev = torch.device("cuda")
-    L = [torch.as_tensor(seeded_limbs(rng, TIMING_WIDTH), device=dev)
+    tree = slice_out["tree"]
+    seq = field.random_limbs(int(rng.integers(1 << 31)), SEQ_VALUES, 253)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tree.insert_seq(seq)
+    torch.cuda.synchronize()
+    seq_s = time.perf_counter() - t0
+    queries = field.random_limbs(int(rng.integers(1 << 31)), QUERIES, 253)
+    # the call is host-bound (a few hundred small launches), so one reading
+    # on the host clock spreads: take five and report the median
+    ni_s = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        tree.non_inclusion_witness(queries)
+        torch.cuda.synchronize()
+        ni_s.append(time.perf_counter() - t0)
+    ni_med = sorted(ni_s)[2]
+    print(f"phase 5: depth {DEPTH} insert_seq of {SEQ_VALUES} values, witness "
+          f"included: {seq_s} s = {SEQ_VALUES / seq_s} sequential inserts/s; "
+          f"non_inclusion_witness K={QUERIES}: s per call {ni_s}, median "
+          f"{ni_med} s = {QUERIES / ni_med} witnesses/s [{card}]")
+
+    imad_per_s = vr.peak_per_s(
+        "imad", torch.cuda.get_device_properties(0).multi_processor_count,
+        clock_mhz)
+    vc.reset_launch_counts()
+    rates = vr.probe(clock_mhz=clock_mhz)
+    probe_launches = dict(vc.LAUNCHES)
+    for r in rates:
+        print(f"phase 5: probe {r['name']:7s} [{r['rows']}, {r['batch']}] "
+              f"k {r['k1']}/{r['k2']}: {r['us_per_iter']} us/iter, "
+              f"{r['t_ops_per_s']} T census ops/s, {r['t_evals_per_s']} T "
+              f"evals/s, {r['peak_ops_per_s'] / 1e12} T {r['peak_kind']}/s = "
+              f"{100 * r['share']:.1f}% of {r['peak_per_s'] / 1e12} T/s "
+              f"[{card}]")
+    for name, n in probe_launches.items():
+        if n == 0:
+            raise AssertionError(f"the probe path never launched {name}")
+    ceiling = {r["name"]: r["peak_ops_per_s"] for r in rates}
+
+    L = [torch.as_tensor(seeded_limbs(rng, FILL_WIDTH), device=dev)
          for _ in range(3)]
-    nodes = [pc.limbs_to_nodes(x) for x in L]
-    st = torch.stack(nodes)
-    cases = {
-        "hash2_nodes": (lambda f: f.hash2_nodes(nodes[0], nodes[1])),
-        "hash3_leaf": (lambda f: f.hash3_leaf(*L)),
-        "nodes_to_limbs": (lambda f: f.nodes_to_limbs(nodes[0])),
-        "permute_n": (lambda f: f.permute_n(st, 1)),
-        "limbs_to_nodes": (lambda f: f.limbs_to_nodes(L[0])),
-    }
-    times = {}
-    for name, call in cases.items():
-        # plain, kernel, kernel, plain
-        p1 = cuda_ms(torch, lambda: call(plain), 1, 1)
-        k1 = cuda_ms(torch, lambda: call(pc), 20, 3)
-        k2 = cuda_ms(torch, lambda: call(pc), 20, 0)
-        p2 = cuda_ms(torch, lambda: call(plain), 1, 0)
+    times, bounds = {}, {}
+    for width in (TIMING_WIDTH, FILL_WIDTH):
+        Lw = [x[:, :width].contiguous() for x in L]
+        nodes = [pc.limbs_to_nodes(x) for x in Lw]
+        st = torch.stack(nodes)
+        cases = {
+            "hash2_nodes": (lambda f: f.hash2_nodes(nodes[0], nodes[1])),
+            "hash3_leaf": (lambda f: f.hash3_leaf(*Lw)),
+            "nodes_to_limbs": (lambda f: f.nodes_to_limbs(nodes[0])),
+            "limbs_to_nodes": (lambda f: f.limbs_to_nodes(Lw[0])),
+            "permute_n": (lambda f: f.permute_n(st, 1)),
+        }
+        for name, call in cases.items():
+            bound, by = poseidon_bound_ms(name, width, imad_per_s)
+            # the probe's measured ceilings: wide steps at the cios16 rate,
+            # 32-bit IMADs at the imad16 rate (bytes as above)
+            wide, narrow = LANE_WORK[name]
+            measured = max(1e3 * width * (wide / ceiling["cios16"]
+                                          + narrow / ceiling["imad16"]),
+                           1e3 * width * BYTES_PER_LANE[name]
+                           / HBM_BYTES_PER_S)
+            if width == FILL_WIDTH:
+                k1 = vr.time_ms(lambda: call(pc), 10, 2)
+                k2 = vr.time_ms(lambda: call(pc), 10, 0)
+                print(f"phase 5: {name} width {width}: kernel ms {k1} {k2}; "
+                      f"bound {bound} ms ({by}; published peaks), share "
+                      f"{100 * bound / min(k1, k2):.1f}%; bound by the "
+                      f"probe's cios16/imad16 ceilings {measured} ms, share "
+                      f"{100 * measured / min(k1, k2):.1f}% [{card}]")
+                continue
+            # plain, kernel, kernel, plain
+            p1 = vr.time_ms(lambda: call(plain), 1, 1)
+            k1 = vr.time_ms(lambda: call(pc), 20, 3)
+            k2 = vr.time_ms(lambda: call(pc), 20, 0)
+            p2 = vr.time_ms(lambda: call(plain), 1, 0)
+            times[name] = (min(k1, k2), min(p1, p2))
+            bounds[name] = (bound, by)
+            print(f"phase 5: {name} width {width}: kernel ms {k1} {k2}, "
+                  f"plain ms {p1} {p2}; bound {bound} ms ({by}; published "
+                  f"peaks), share {100 * bound / min(k1, k2):.1f}%; "
+                  f"bound by the probe's cios16/imad16 ceilings {measured} "
+                  f"ms, share {100 * measured / min(k1, k2):.1f}% [{card}]")
+
+    for name in vr.BODIES:
+        x = vr.seeded_input(name, *PROBE_SHAPE, seed=SEED)
+        call = lambda f: f(name, x, PROBE_K)
+        p1 = vr.time_ms(lambda: call(vr.plain), 1, 1)
+        k1 = vr.time_ms(lambda: call(vc.roofline), 10, 2)
+        k2 = vr.time_ms(lambda: call(vc.roofline), 10, 0)
+        p2 = vr.time_ms(lambda: call(vr.plain), 1, 0)
         times[name] = (min(k1, k2), min(p1, p2))
-        print(f"phase 5: {name} width {TIMING_WIDTH}: kernel ms {k1} {k2}, "
-              f"plain ms {p1} {p2} [{card}]")
-    return times
+        bounds[name] = roofline_bound_ms(vr, name, x.numel(), PROBE_K,
+                                         imad_per_s)
+        print(f"phase 5: roofline {name} [{PROBE_SHAPE[0]}, "
+              f"{PROBE_SHAPE[1]}] k={PROBE_K}: kernel ms {k1} {k2}, plain ms "
+              f"{p1} {p2}; bound {bounds[name][0]} ms ({bounds[name][1]}; "
+              f"published peaks), share "
+              f"{100 * bounds[name][0] / min(k1, k2):.1f}% [{card}]")
+    return {"times": times, "bounds": bounds, "probe_launches": probe_launches}
 
 
-def kernel_record(errs: dict, launches: dict, times: dict) -> dict:
-    """The kernels' JSON record: the main path's kernels under "kernels"
-    (each launched by phase 4), the entry points the main path does not
-    run under "off_path_kernels"."""
+def kernel_record(errs: dict, launches: dict, numbers: dict) -> dict:
+    """The kernels' JSON record: every kernel that a path runs under
+    "kernels" (launches: the sum over the paths that run it, each path's
+    run counted from 0, with the split under "paths"), the entry point no
+    path runs under "off_path_kernels".  No single PyTorch call computes a
+    Poseidon permutation or a chained probe body, so library_ms is null."""
     record = {"kernels": [], "off_path_kernels": []}
-    for name, (rep, on_path) in KERNELS.items():
-        record["kernels" if on_path else "off_path_kernels"].append(
-            {"name": name, "route": "cuda", "source": SOURCE,
-             "replaces": rep, "launches": launches[name],
-             "max_abs_err": errs[name], "ms": times[name][0],
-             "plain_ms": times[name][1]})
+    entries = [(n, "cuda", POSEIDON_SOURCE, rep, paths)
+               for n, (rep, paths) in POSEIDON.items()]
+    entries += [(n, "cuda", ROOFLINE_SOURCE, ROOFLINE_REPLACES, ("probe",))
+                for n in numbers["probe_launches"]]
+    for name, route, source, rep, paths in entries:
+        split = {p: launches[p][name] for p in paths}
+        ms, plain_ms = numbers["times"][name]
+        bound, by = numbers["bounds"][name]
+        record["kernels" if paths else "off_path_kernels"].append(
+            {"name": name, "route": route, "source": source, "replaces": rep,
+             "launches": sum(split.values()), "paths": split,
+             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
+             "bound_ms": bound, "bound_by": by, "library_ms": None})
     return record
 
 
@@ -340,29 +757,38 @@ def main() -> int:
         print("no CUDA device: chip_smoke.py needs one GPU", file=sys.stderr)
         return 1
 
-    card = card_line()
-    print(f"phase 1: {torch.cuda.get_device_name(0)}; nvidia-smi: {card}; "
-          f"torch {torch.__version__}, CUDA {torch.version.cuda}")
-
     from imt_tpu_torch.ops import _build, field
     from imt_tpu_torch.ops import poseidon as plain
     from imt_tpu_torch.ops import poseidon_cuda as pc
-    from imt_tpu_torch.tree import indexed, reference_oracle
+    from imt_tpu_torch.ops import vpu_roofline as vr
+    from imt_tpu_torch.ops import vpu_roofline_cuda as vc
+    from imt_tpu_torch.tree import indexed, merkle, reference_oracle
 
-    t0 = time.perf_counter()
-    _build.load()
-    ptxas = [ln.strip() for ln in _build.build_log.splitlines()
-             if "registers" in ln or "spill" in ln]
-    print(f"phase 2: kernel library built and loaded in "
-          f"{time.perf_counter() - t0:.1f} s (nvcc {_build.build_seconds:.1f}"
-          f" s); ptxas: {' | '.join(ptxas)}")
+    card = vr.nvidia_smi("name,power.limit")
+    clock_mhz = float(vr.nvidia_smi("clocks.max.sm").split()[0])
+    print(f"phase 1: {torch.cuda.get_device_name(0)}; nvidia-smi: {card}, "
+          f"max SM clock {clock_mhz} MHz; torch {torch.__version__}, CUDA "
+          f"{torch.version.cuda}")
+    print(f"phase 1: least multiply-adds per permutation (bound): wide "
+          f"{PERM_WORK[0]}, 32-bit {PERM_WORK[1]}; the kernel's today: wide "
+          f"{MONT_PER_PERM * WIDE_PER_MONT}, 32-bit "
+          f"{MONT_PER_PERM * NARROW_PER_MONT}")
 
+    phase_build(_build)
     errs = phase_kernel_vs_plain(torch, pc, plain, field)
+    errs.update(phase_roofline_vs_plain(torch, vr, vc))
     slice_out = phase_slice(torch, pc, field, indexed, reference_oracle)
-    times = phase_numbers(torch, pc, plain, card, slice_out)
+    seq_out = phase_sequential(torch, pc, field, indexed, merkle,
+                               reference_oracle, slice_out,
+                               torch.device("cuda"))
+    numbers = phase_numbers(torch, pc, plain, vr, vc, indexed, field, card,
+                            clock_mhz, slice_out)
+    launches = {"insert_batch": slice_out["launches"],
+                "sequential": seq_out["launches"],
+                "probe": numbers["probe_launches"]}
 
     print(card)
-    print(json.dumps(kernel_record(errs, slice_out["launches"], times)))
+    print(json.dumps(kernel_record(errs, launches, numbers)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,11 +1,13 @@
 """Build the CUDA kernels with nvcc and bind them with ctypes.
 
-The source ``csrc/poseidon_bn254.cu`` compiles, at first use, into a shared
-library with a plain C interface under ``imt_tpu_torch/build/`` (listed in
-``.gitignore``), named by a digest of the source and the flags so that an
-edited source never loads a stale build.  No PyTorch headers are involved, so
-a build takes seconds.  Without ``nvcc`` or without a CUDA device, ``load``
-raises ``RuntimeError``: nothing here falls back to another path.
+Each source under ``csrc/`` (``poseidon_bn254.cu``, ``vpu_roofline.cu``)
+compiles, at first use, into its own shared library with a plain C interface
+under ``imt_tpu_torch/build/`` (listed in ``.gitignore``), named by a digest
+of the source and the flags so that an edited source never loads a stale
+build.  No PyTorch headers are involved, so a build takes seconds; ``build``
+starts one nvcc per missing library, all at once.  Without ``nvcc`` or
+without a CUDA device, ``load`` raises ``RuntimeError``: nothing here falls
+back to another path.
 """
 
 from __future__ import annotations
@@ -19,27 +21,50 @@ import threading
 import time
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-SOURCE = os.path.join(_HERE, "csrc", "poseidon_bn254.cu")
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "build")
 CUDA_DEFAULT_HOME = "/usr/local/cuda"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
-_SIGNATURES = {
-    "imt_init_constants": [_P, _P, _P, _P],
-    "imt_permute_n": [_P, _P, ctypes.c_longlong, ctypes.c_int, _P],
-    "imt_hash2_nodes": [_P, _P, _P, ctypes.c_longlong, _P],
-    "imt_hash3_leaf": [_P, _P, _P, _P, ctypes.c_longlong, _P],
-    "imt_limbs_to_nodes": [_P, _P, ctypes.c_longlong, _P],
-    "imt_nodes_to_limbs": [_P, _P, ctypes.c_longlong, _P],
+_I64 = ctypes.c_longlong
+_I32 = ctypes.c_int
+# library name -> (source under csrc/, C entry points and their arguments)
+LIBRARIES = {
+    "poseidon": ("poseidon_bn254.cu", {
+        "imt_init_constants": [_P, _P, _P, _P],
+        "imt_permute_n": [_P, _P, _I64, _I32, _P],
+        "imt_hash2_nodes": [_P, _P, _P, _I64, _P],
+        "imt_hash3_leaf": [_P, _P, _P, _P, _I64, _P],
+        "imt_limbs_to_nodes": [_P, _P, _I64, _P],
+        "imt_nodes_to_limbs": [_P, _P, _I64, _P],
+    }),
+    "vpu_roofline": ("vpu_roofline.cu", {
+        "imt_roofline_f32": [_I32, _P, _P, _I64, _I32, ctypes.c_float,
+                             ctypes.c_float, _P],
+        "imt_roofline_u32": [_I32, _P, _P, _I64, _I32, ctypes.c_uint32,
+                             ctypes.c_uint32, _P],
+    }),
 }
 
 _lock = threading.Lock()
-_lib: ctypes.CDLL | None = None
-# what the last build printed (ptxas register and spill report) and took
-build_log = ""
-build_seconds = 0.0
+_libs: dict[str, ctypes.CDLL] = {}
+# per library: what its last build printed (the ptxas register and spill
+# report) and how long nvcc took
+build_log: dict[str, str] = {}
+build_seconds: dict[str, float] = {}
+
+
+def source(name: str) -> str:
+    return os.path.join(_HERE, "csrc", LIBRARIES[name][0])
+
+
+def library_path(name: str) -> str:
+    """Where the library of `name` is (or will be) built."""
+    with open(source(name), "rb") as f:
+        digest = hashlib.sha256(
+            f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return os.path.join(BUILD_DIR, f"libimt_{name}_{digest}.so")
 
 
 def find_nvcc() -> str:
@@ -62,42 +87,57 @@ def find_nvcc() -> str:
         "the CUDA toolkit to build; on a host without it, use CPU tensors")
 
 
-def _compile() -> str:
-    global build_log, build_seconds
+def _compile(names) -> None:
+    """Build every library of `names` that is missing, one nvcc each, all
+    started together.  Raises if any build fails."""
     nvcc = find_nvcc()
     import torch
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the CUDA kernels of imt_tpu_torch "
                            "need one; on a host without it, use CPU tensors")
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(
-            f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = os.path.join(BUILD_DIR, f"libimt_poseidon_{digest}.so")
-    if os.path.exists(out):
-        return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    t0 = time.perf_counter()
-    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, SOURCE],
-                          capture_output=True, text=True)
-    build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}:\n{build_log}")
-    os.replace(tmp, out)
-    return out
+    jobs = {}
+    for name in names:
+        out = library_path(name)
+        if os.path.exists(out):
+            continue
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{out}.{os.getpid()}.tmp"
+        proc = subprocess.Popen([nvcc, *NVCC_FLAGS, "-o", tmp, source(name)],
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        jobs[name] = (proc, tmp, out, time.perf_counter())
+    failed = []
+    for name, (proc, tmp, out, t0) in jobs.items():
+        log, _ = proc.communicate()
+        build_seconds[name] = time.perf_counter() - t0
+        build_log[name] = log
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {LIBRARIES[name][0]} with exit "
+                          f"code {proc.returncode}:\n{log}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
 
 
-def load() -> ctypes.CDLL:
-    """Build (once per source digest) and load the kernel library."""
-    global _lib
+def build() -> None:
+    """Build (once per source digest) every library in parallel, and load
+    them."""
     with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(_compile())
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(lib, name)
+        _compile([n for n in LIBRARIES if n not in _libs])
+    for n in LIBRARIES:
+        load(n)
+
+
+def load(name: str) -> ctypes.CDLL:
+    """Build (once per source digest) and load one kernel library."""
+    with _lock:
+        if name not in _libs:
+            _compile([name])
+            lib = ctypes.CDLL(library_path(name))
+            for fn_name, argtypes in LIBRARIES[name][1].items():
+                fn = getattr(lib, fn_name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
-            _lib = lib
-        return _lib
+            _libs[name] = lib
+        return _libs[name]

@@ -225,6 +225,50 @@ def from_mont(a: torch.Tensor) -> torch.Tensor:
     return mont_mul(a, _col(1, a))
 
 
+def _col_n(value: int, n: int, like: torch.Tensor) -> torch.Tensor:
+    """The n limbs of `value` as an int64 column broadcasting against
+    `like`."""
+    col = torch.tensor(_int_to_limbs_list(value, n), dtype=torch.int64,
+                       device=like.device)
+    return col.view((n,) + (1,) * (like.dim() - 1))
+
+
+def sub_mod(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(a - b) mod p, folded below 2p (``imt_tpu.ops.field.sub_mod``,
+    :313): a - b + 4p, which lies in (2p, 6p), then two conditional
+    subtractions of 2p.  a, b: canonical limbs int32[16, ...] of values
+    < 2p; returns canonical limbs int32[16, ...] < 2p, the same bits as
+    ``imt_tpu`` (not fully reduced: 2p > 2^254 > p)."""
+    x = limbs_to_work(a) - limbs_to_work(b)
+    t = _carry(torch.cat([x + _col(4 * P, x), torch.zeros_like(x[:1])]))
+    two_p = _col_n(2 * P, LIMBS + 1, t)
+    for _ in range(2):
+        d = _carry(torch.cat([t - two_p, torch.zeros_like(t[:1])]))
+        t = torch.where((d[LIMBS + 1] >= 0).unsqueeze(0), d[:LIMBS + 1], t)
+    return work_to_limbs(t[:LIMBS])
+
+
+def less_than(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a < b over limb arrays [L, ...] (limb 0 least significant; the
+    batch shapes broadcast) -> bool[batch]; equal values -> False
+    (``imt_tpu.ops.field.less_than``, :371).  Compared limb by limb from the
+    most significant down, in the inputs' dtype: a [16, N] comparison
+    allocates bool[N] masks and no wider temporaries."""
+    lt = a[-1] < b[-1]
+    eq_so_far = a[-1] == b[-1]
+    for i in range(a.shape[0] - 2, -1, -1):
+        lt |= eq_so_far & (a[i] < b[i])
+        eq_so_far &= a[i] == b[i]
+    return lt
+
+
+def select(cond, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """cond ? a : b per lane (``imt_tpu.ops.field.select``, :377); cond:
+    bool[batch] (tensor or numpy)."""
+    cond = torch.as_tensor(cond, device=a.device)
+    return torch.where(cond.unsqueeze(0), a, b)
+
+
 def eq(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Bit-exact equality of limb arrays -> bool[batch]."""
     return (a == b).all(dim=0)

@@ -37,7 +37,7 @@ def reset_launch_counts() -> None:
 
 def _lib_for(device: torch.device) -> ctypes.CDLL:
     """The kernel library, with the constant tables copied to `device`."""
-    lib = _build.load()
+    lib = _build.load("poseidon")
     idx = device.index if device.index is not None \
         else torch.cuda.current_device()
     with _init_lock:

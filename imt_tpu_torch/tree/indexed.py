@@ -1,21 +1,29 @@
 """Indexed Merkle tree (Aztec-style nullifier tree), dense, on torch tensors.
 
-Counterpart of ``imt_tpu.tree.indexed`` for the dense tree's batched insert:
-leaf semantics ``(val, next_val, next_idx)`` form a sorted linked list over
-the slots, and ``insert_batch`` resolves a whole batch with one lexicographic
-sort, one 3-to-1 rehash of the 2K dirty leaves and a level-by-level
-dirty-path update (``_plan_batch`` then ``_update_paths_batch``), with the
-sequential semantics of ``imt_tpu``.  Every hash goes through
-``ops/hashing.py``: the plain torch path for CPU tensors, the CUDA kernel
-for CUDA tensors.
+Counterpart of ``imt_tpu.tree.indexed`` for the dense tree: leaf semantics
+``(val, next_val, next_idx)`` form a sorted linked list over the slots.
+
+* ``insert_batch`` resolves a whole batch with one lexicographic sort, one
+  3-to-1 rehash of the 2K dirty leaves and a level-by-level dirty-path
+  update (``_plan_batch`` then ``_update_paths_batch``).
+* ``insert`` / ``insert_seq`` are the sequential witness path: one step per
+  value (``_insert_step``, ``imt_tpu``'s ``_insert_step_fn``) returning the
+  ``InsertWitness`` bundle the reference's insert_leaf chip consumes.
+* ``non_inclusion_witness`` gives the ``NonInclusionWitness`` of a batch of
+  queries with one sort; ``verify_non_inclusion`` and ``insert_leaf`` are
+  the verifier predicates.
+
+Every hash goes through ``ops/hashing.py``: the plain torch path for CPU
+tensors, the CUDA kernel for CUDA tensors.  A tree lives on the card unless
+the caller asks for ``device="cpu"``.
 
 State: canonical limbs ``int32[16, N]`` for ``vals`` / ``next_vals`` /
 ``next_idxs``, and the Merkle levels as nodes ``int32[8, N >> d]``
 (Montgomery form, fully reduced), leaves first.  Unlike ``imt_tpu``, whose
-arrays are immutable, ``insert_batch`` updates the state and the levels IN
-PLACE: at depth 24 a functional update would copy ~4 GB per batch.  A batch
-that raises part-way (a failed launch) therefore leaves the tree
-inconsistent.
+arrays are immutable, the inserts update the state and the levels IN PLACE:
+at depth 24 a functional update would copy ~4 GB per batch (and ~1 GB per
+sequential insert).  An insert that raises part-way (a failed launch)
+therefore leaves the tree inconsistent.
 
 Duplicate and zero inserts are rejected (ok=False; the slot is consumed and
 stays a zero leaf), as in ``imt_tpu``.  Values given as python ints are
@@ -25,6 +33,8 @@ reduced mod p; values given as packed limbs are stored as given (a value
 
 from __future__ import annotations
 
+import os
+from dataclasses import dataclass
 from functools import lru_cache
 
 import numpy as np
@@ -32,9 +42,96 @@ import torch
 
 from ..ops import field, hashing
 from ..utils.observability import GLOBAL_METRICS
+from .merkle import _dec_path, _enc_path, fold_nodes, verify_proofs
 
 # H(0,0,0): the empty-slot leaf hash.
 ZERO_LEAF_HASH = 1960587138944869480785025106734196872454309951825657414575195034687326603497
+
+# Fail-fast witness checking (``imt_tpu`` :59-76): with IMT_DEBUG_WITNESS=1
+# or set_debug_witness(True), every witness bundle is re-verified by the
+# insert_leaf / verify_non_inclusion predicate as it is made, and an
+# AssertionError raised if an accepted lane fails.
+_debug_witness = os.environ.get("IMT_DEBUG_WITNESS") == "1"
+
+
+def set_debug_witness(on: bool) -> None:
+    global _debug_witness
+    _debug_witness = bool(on)
+
+
+def debug_witness_enabled() -> bool:
+    return _debug_witness
+
+
+@dataclass
+class InsertWitness:
+    """The argument bundle of the reference's insert_leaf chip
+    (src/indexed_merkle_tree.rs:231-244) for K inserts (``imt_tpu`` :136),
+    as tensors on the tree's device; ``ok`` is numpy."""
+
+    ok: np.ndarray                         # bool[K]
+    old_root: torch.Tensor                 # int32[16, K]
+    low_leaf_val: torch.Tensor             # int32[16, K]
+    low_leaf_next_val: torch.Tensor        # int32[16, K]
+    low_leaf_next_idx: torch.Tensor        # int32[16, K]
+    low_leaf_proof: torch.Tensor           # int32[depth, 16, K]
+    low_leaf_proof_helper: torch.Tensor    # int32[depth, K]
+    new_root: torch.Tensor                 # int32[16, K]
+    new_leaf_val: torch.Tensor             # int32[16, K]
+    new_leaf_next_val: torch.Tensor        # int32[16, K]
+    new_leaf_next_idx: torch.Tensor        # int32[16, K]
+    new_leaf_index: torch.Tensor           # int32[K]
+    new_leaf_proof: torch.Tensor           # int32[depth, 16, K]
+    new_leaf_proof_helper: torch.Tensor    # int32[depth, K]
+    is_new_leaf_largest: torch.Tensor      # bool[K]
+
+
+@dataclass
+class NonInclusionWitness:
+    """Witness bundle of verify_non_inclusion for K queries (``imt_tpu``
+    :158; the reference's standalone chip entry,
+    src/indexed_merkle_tree.rs:127); ``ok`` is numpy."""
+
+    ok: np.ndarray                         # bool[K] (a low leaf exists)
+    root: torch.Tensor                     # int32[16, K]
+    low_leaf_val: torch.Tensor             # int32[16, K]
+    low_leaf_next_val: torch.Tensor        # int32[16, K]
+    low_leaf_next_idx: torch.Tensor        # int32[16, K]
+    low_leaf_proof: torch.Tensor           # int32[depth, 16, K]
+    low_leaf_proof_helper: torch.Tensor    # int32[depth, K]
+    is_new_leaf_largest: torch.Tensor      # bool[K]
+
+
+def check_insert_witness(w: InsertWitness) -> None:
+    """Raise AssertionError if an accepted lane of `w` fails insert_leaf
+    (``imt_tpu`` :105)."""
+    pred = insert_leaf(
+        w.old_root, w.low_leaf_val, w.low_leaf_next_val, w.low_leaf_next_idx,
+        w.low_leaf_proof, w.low_leaf_proof_helper, w.new_root,
+        w.new_leaf_val, w.new_leaf_next_val, w.new_leaf_next_idx,
+        w.new_leaf_index, w.new_leaf_proof, w.new_leaf_proof_helper,
+        w.is_new_leaf_largest).cpu().numpy()
+    bad = np.asarray(w.ok) & ~pred
+    if bad.any():
+        raise AssertionError(
+            f"witness-generation inconsistency: insert_leaf predicate "
+            f"rejected accepted lanes {np.nonzero(bad)[0].tolist()}")
+
+
+def check_non_inclusion_witness(w: NonInclusionWitness, queries) -> None:
+    """Raise AssertionError if an ok lane of `w` fails verify_non_inclusion
+    (``imt_tpu`` :122)."""
+    pred = verify_non_inclusion(
+        w.root, w.low_leaf_val, w.low_leaf_next_val, w.low_leaf_next_idx,
+        w.low_leaf_proof, w.low_leaf_proof_helper,
+        torch.as_tensor(queries, device=w.root.device),
+        w.is_new_leaf_largest).cpu().numpy()
+    bad = np.asarray(w.ok) & ~pred
+    if bad.any():
+        raise AssertionError(
+            f"witness-generation inconsistency: verify_non_inclusion "
+            f"rejected ok lanes {np.nonzero(bad)[0].tolist()}")
+
 
 # limbs of each 48-bit sort key, most significant key first
 _KEY_GROUPS = ((15, 14, 13), (12, 11, 10), (9, 8, 7), (6, 5, 4), (3, 2, 1),
@@ -85,6 +182,29 @@ def _dynamic_update_slice(x: torch.Tensor, update: torch.Tensor,
     """``lax.dynamic_update_slice_in_dim(x, update, start, axis=1)``, in
     place."""
     _dynamic_slice(x, start, update.shape[1]).copy_(update)
+
+
+def _value_keys(limbs: torch.Tensor) -> list:
+    """Canonical limbs [16, M] -> six int64[M] keys of 48 bits (three limbs
+    each), most significant first: sorting by them in order sorts by
+    value."""
+    keys = []
+    for group in _KEY_GROUPS:
+        key = torch.zeros(limbs.shape[1], dtype=torch.int64,
+                          device=limbs.device)
+        for limb in group:
+            key = (key << field.LIMB_BITS) | limbs[limb].to(torch.int64)
+        keys.append(key)
+    return keys
+
+
+def _participants(vals: torch.Tensor) -> torch.Tensor:
+    """bool[M]: the linked-list participants among the slots of `vals`
+    [16, M]: slot 0 (the sentinel) and every slot holding a nonzero value
+    (``imt_tpu`` :489-490)."""
+    occupied = ~field.is_zero(vals)
+    occupied[0] = True
+    return occupied
 
 
 def _lex_order(keys) -> torch.Tensor:
@@ -180,13 +300,7 @@ def _plan_batch(vals, nvs, nis, new_vals, count: int, n: int, k: int):
     # each, most significant first) and the slot, as LSD passes.  Slots of
     # existing entries precede new slots, and new slots follow batch order:
     # the slot tie-break encodes sequential acceptance priority.
-    value_keys = []
-    for group in _KEY_GROUPS:
-        key = torch.zeros(m, dtype=torch.int64, device=dev)
-        for limb in group:
-            key = (key << field.LIMB_BITS) | torch.cat(
-                [vals[limb], new_vals[limb]]).to(torch.int64)
-        value_keys.append(key)
+    value_keys = _value_keys(torch.cat([vals, new_vals], dim=1))
     entry_slot = torch.where(ar_m < n, ar_m, ar_m - n + slab_start)
     order = _lex_order([entry_slot] + value_keys[::-1])
 
@@ -280,12 +394,284 @@ def _build_levels(leaves: torch.Tensor, depth: int) -> list:
     return levels
 
 
+# ---------------------------------------------------------------------------
+# Sequential insert step (witness path)
+# ---------------------------------------------------------------------------
+
+def _gather_proof(levels: list, idx: torch.Tensor, depth: int):
+    """Sibling paths of the slots `idx` int64[K] (``imt_tpu`` :216): nodes
+    [depth, 8, K] and helper bits int32[depth, K] (1 iff the path node is a
+    left child, reference src/utils.rs:70-79)."""
+    sibs, helpers = [], []
+    for d in range(depth):
+        sibs.append(levels[d][:, idx ^ 1])
+        helpers.append(((idx & 1) == 0).to(torch.int32))
+        idx = idx >> 1
+    return torch.stack(sibs), torch.stack(helpers)
+
+
+def _low_leaf(vals: torch.Tensor, nvs: torch.Tensor, new_val: torch.Tensor):
+    """The low leaf of `new_val` [16, 1] among the slots of `vals` / `nvs`
+    [16, M] (``imt_tpu`` :488-494): the first list participant (slot 0 or a
+    nonzero value) with val < new_val and (new_val < next_val or next_val =
+    0).  Returns (ok, low_idx) as 0-dim device tensors; with no such slot
+    ok is False and low_idx 0, as jnp.argmax of an all-false mask gives.
+    The comparisons run limb by limb in int32 (field.less_than), so the
+    [16, M] mask allocates only bool[M] temporaries."""
+    mask = _participants(vals) & field.less_than(vals, new_val) & (
+        field.less_than(new_val, nvs) | field.is_zero(nvs))
+    return mask.any(), torch.argmax(mask.to(torch.uint8))
+
+
+def _update_paths(levels: list, pair: torch.Tensor, leaf: torch.Tensor,
+                  depth: int):
+    """Dirty-path recompute for the two touched leaves (``imt_tpu``
+    ``_update_paths``, :323, with D = 2), into scratch columns: `levels` is
+    only read.  pair: int64[2] slots (the low leaf, the new slot); leaf:
+    their new leaf nodes [8, 2].
+
+    Returns (idx, nodes, old_self, old_sibs, new_sibs): idx int64[depth + 1,
+    2] is each path's node index per level; nodes and old_self, per level
+    (leaves first, the root last), the two path nodes [8, 2] of the updated
+    tree and those the tree holds now; old_sibs and new_sibs, per level
+    below the root, the siblings in the tree now and in the updated tree.
+    Where the two paths have merged, both columns carry the same values, as
+    in ``imt_tpu``, whose repeated scatter indices write identical values."""
+    idx = pair[None] >> torch.arange(depth + 1, device=pair.device)[:, None]
+    sib = idx[:-1] ^ 1
+    cols = torch.cat([sib, idx[:-1]], dim=1)        # one gather per level
+    is_left = ((idx[:-1] & 1) == 0).unsqueeze(1)
+    # the other path's node is this path's sibling in the updated level
+    other_is_sib = (sib == idx[:-1].flip(1)).unsqueeze(1)
+    nodes, old_self, old_sibs, new_sibs = [leaf], [], [], []
+    cur = leaf
+    for d in range(depth):
+        old = levels[d][:, cols[d]]
+        new_sib = torch.where(other_is_sib[d], cur.flip(1), old[:, :2])
+        cur = hashing.hash2_nodes(torch.where(is_left[d], cur, new_sib),
+                                  torch.where(is_left[d], new_sib, cur))
+        nodes.append(cur)
+        old_sibs.append(old[:, :2])
+        old_self.append(old[:, 2:])
+        new_sibs.append(new_sib)
+    old_self.append(levels[depth][:, idx[depth]])
+    return idx, nodes, old_self, old_sibs, new_sibs
+
+
+def _insert_step(tree: "IndexedMerkleTree", new_val: torch.Tensor) -> dict:
+    """One sequential insert into `tree`, in place (``imt_tpu``
+    ``_insert_step_fn``, :472-556).  new_val: canonical limbs [16, 1] on the
+    tree's device.  Returns the witness fields, one lane, with the roots and
+    proofs still as nodes (insert_seq decodes them all at once).
+
+    ``imt_tpu`` computes the whole post-insert state and selects it with
+    jnp.where(ok, ...) over every level -- at depth 24 a ~1 GB copy per
+    insert.  Here the two touched paths are computed into scratch columns,
+    the new root and the new-leaf proof come from them, and the state is
+    written only where the lane is accepted (a where over the touched
+    columns, so nothing waits for the host).  A rejected lane still gets
+    the hypothetical new root, proofs and pointers that ``imt_tpu``
+    computes."""
+    depth, dev = tree.tree_depth, tree.device
+    vals, nvs, nis, levels = (tree.vals, tree.next_vals, tree.next_idxs,
+                              tree.levels)
+    live = tree._live
+    ok, low_idx = _low_leaf(vals[:, :live], nvs[:, :live], new_val)
+    s = torch.full((1,), tree.count + 1, dtype=torch.int64, device=dev)
+    pair = torch.cat([low_idx.view(1), s])                     # int64[2]
+    old_v, old_nv, old_ni = vals[:, pair], nvs[:, pair], nis[:, pair]
+    low_nv, low_ni = old_nv[:, :1], old_ni[:, :1]
+    s_limbs = index_to_limbs(s)
+
+    # the two leaves after imt_tpu's writes (:508-510), in their order: a
+    # write at s overrides one at the low leaf where the two coincide
+    at_low, at_s = pair == pair[0], pair == s
+    v2 = torch.where(at_s, new_val, old_v)
+    nv2 = torch.where(at_s, low_nv, torch.where(at_low, new_val, old_nv))
+    ni2 = torch.where(at_s, low_ni, torch.where(at_low, s_limbs, old_ni))
+    leaf = hashing.hash3_leaf(v2, nv2, ni2)                    # [8, 2]
+    idx, nodes, old_self, old_sibs, new_sibs = _update_paths(
+        levels, pair, leaf, depth)
+
+    # witness, taken before the state is written: the low-leaf proof
+    # against the old tree, the new-leaf proof against the tree AFTER the
+    # low leaf's update (reference :734, imt_tpu :520-521)
+    is_left = ((idx[:-1] & 1) == 0).to(torch.int32)
+    w = dict(
+        ok=ok.view(1), old_root=old_self[-1][:, :1], new_root=nodes[-1][:, :1],
+        low_leaf_val=old_v[:, :1], low_leaf_next_val=low_nv,
+        low_leaf_next_idx=low_ni,
+        low_leaf_proof=torch.stack([o[:, :1] for o in old_sibs]),
+        low_leaf_proof_helper=is_left[:, :1],
+        new_leaf_val=new_val, new_leaf_next_val=low_nv,
+        new_leaf_next_idx=low_ni, new_leaf_index=s.to(torch.int32),
+        new_leaf_proof=torch.stack([n[:, 1:] for n in new_sibs]),
+        new_leaf_proof_helper=is_left[:, 1:],
+        is_new_leaf_largest=field.is_zero(low_nv))
+
+    # commit, on an accepted lane only.  Where the two paths have merged
+    # (always at the root), index_put_ sees a repeated index; both columns
+    # hold the same value (see _update_paths), so the winner does not matter.
+    for x, new, old in ((vals, v2, old_v), (nvs, nv2, old_nv),
+                        (nis, ni2, old_ni)):
+        x[:, pair] = torch.where(ok, new, old)
+    for d in range(depth + 1):
+        levels[d][:, idx[d]] = torch.where(ok, nodes[d], old_self[d])
+    return w
+
+
+def _stack_witness(steps: list) -> InsertWitness:
+    """Per-insert witness fields (one lane each) -> one InsertWitness in the
+    batch layout ([16, C] / [depth, 16, C], ``imt_tpu`` :583-599), with all
+    roots and proofs decoded in one launch."""
+    cat = {key: torch.cat([w[key] for w in steps], dim=-1)
+           for key in steps[0]}
+    depth = cat["low_leaf_proof"].shape[0]
+    # roots as one-level paths, then both proofs: [2 + 2*depth, 8, C]
+    path = torch.cat([cat["old_root"][None], cat["new_root"][None],
+                      cat["low_leaf_proof"], cat["new_leaf_proof"]])
+    dec = _dec_path(path)
+    cat["old_root"], cat["new_root"] = dec[0], dec[1]
+    cat["low_leaf_proof"] = dec[2:2 + depth]
+    cat["new_leaf_proof"] = dec[2 + depth:]
+    cat["ok"] = cat["ok"].cpu().numpy()
+    return InsertWitness(**cat)
+
+
+# ---------------------------------------------------------------------------
+# Batched non-inclusion witness
+# ---------------------------------------------------------------------------
+
+def _non_inclusion(vals, nvs, nis, levels, queries, depth: int) -> dict:
+    """Low leaf, proof and ok of each query [16, K] (``imt_tpu``
+    ``_non_inclusion_witness_fn``, :674-750) over the slots of `vals` [16, M]
+    (a prefix holding every list participant).  One stable sort of slots
+    and queries by (value, is_query, entry): an existing entry equal to a
+    query sorts before it, so that query's low leaf fails val < q (ok False,
+    the value is present).  ``imt_tpu`` sorts with a 9-key lax.sort; here
+    the value is six 48-bit keys and is_query rides in the low bit of the
+    least significant one, as LSD stable passes (_lex_order), which gives
+    the same order."""
+    dev = vals.device
+    n, k = vals.shape[1], queries.shape[1]
+    m = n + k
+    keys = _value_keys(torch.cat([vals, queries], dim=1))
+    is_query = (torch.arange(m, device=dev) >= n).to(torch.int64)
+    keys[-1] = (keys[-1] << 1) | is_query
+    order = _lex_order(keys[::-1])
+
+    participant = torch.cat([_participants(vals),
+                             torch.zeros(k, dtype=torch.bool, device=dev)])
+    pos = torch.arange(m, device=dev)
+    # last participant strictly before each sorted position
+    prv = torch.where(participant[order], pos, -1).cummax(0).values
+    prv = torch.cat([torch.full((1,), -1, device=dev), prv[:-1]])
+    cand = order[prv.clamp(0, m - 1)]
+    inv = torch.empty_like(order)
+    inv[order] = pos
+    qpos = inv[n:]
+    found = prv[qpos] >= 0
+    low_idx = torch.where(found, cand[qpos], 0)
+
+    low_val, low_nv, low_ni = vals[:, low_idx], nvs[:, low_idx], \
+        nis[:, low_idx]
+    ok = found & field.less_than(low_val, queries) & (
+        field.less_than(queries, low_nv) | field.is_zero(low_nv))
+    proof, helpers = _gather_proof(levels, low_idx, depth)
+    root = hashing.dec_nodes(levels[-1]).expand(field.LIMBS, k).contiguous()
+    return dict(ok=ok.cpu().numpy(), root=root, low_leaf_val=low_val,
+                low_leaf_next_val=low_nv, low_leaf_next_idx=low_ni,
+                low_leaf_proof=_dec_path(proof),
+                low_leaf_proof_helper=helpers,
+                is_new_leaf_largest=field.is_zero(low_nv))
+
+
+# ---------------------------------------------------------------------------
+# Verifier predicates (the reference chip's constraints as batched booleans)
+# ---------------------------------------------------------------------------
+
+def _bound_ok(low_leaf_next_val, new_leaf_value, is_new_leaf_largest):
+    return torch.where(torch.as_tensor(is_new_leaf_largest,
+                                       device=low_leaf_next_val.device),
+                       field.is_zero(low_leaf_next_val),
+                       field.less_than(new_leaf_value, low_leaf_next_val))
+
+
+def verify_non_inclusion(root, low_leaf_val, low_leaf_next_val,
+                         low_leaf_next_idx, low_leaf_proof,
+                         low_leaf_proof_helper, new_leaf_value,
+                         is_new_leaf_largest) -> torch.Tensor:
+    """Batched non-membership check (``imt_tpu`` :881; the reference's
+    verify_non_inclusion, src/indexed_merkle_tree.rs:127-229).  Values are
+    canonical limb tensors [16, K]; proof [depth, 16, K]; helpers
+    [depth, K]; is_new_leaf_largest bool[K].  Returns bool[K] on the
+    tensors' device."""
+    low_hash = hashing.hash3_leaf(low_leaf_val.contiguous(),
+                                  low_leaf_next_val.contiguous(),
+                                  low_leaf_next_idx.contiguous())
+    acc_left = torch.as_tensor(low_leaf_proof_helper,
+                               device=low_hash.device) != 0
+    computed = hashing.dec_nodes(fold_nodes(
+        low_hash, _enc_path(low_leaf_proof), acc_left))
+    return (_bound_ok(low_leaf_next_val, new_leaf_value, is_new_leaf_largest)
+            & field.eq(computed, root)
+            & field.less_than(low_leaf_val, new_leaf_value))
+
+
+def insert_leaf(old_root, low_leaf_val, low_leaf_next_val, low_leaf_next_idx,
+                low_leaf_proof, low_leaf_proof_helper, new_root,
+                new_leaf_val, new_leaf_next_val, new_leaf_next_idx,
+                new_leaf_index, new_leaf_proof, new_leaf_proof_helper,
+                is_new_leaf_largest) -> torch.Tensor:
+    """Batched insertion check (``imt_tpu`` :903; the reference's
+    insert_leaf chip, src/indexed_merkle_tree.rs:231-314): non-inclusion of
+    the new value, the interim root with the low leaf pointing at the new
+    slot, the new slot empty under it, pointer inheritance, and the final
+    root.  new_leaf_index: int[K].  Returns bool[K] on the tensors' device.
+
+    The four root folds (old low leaf, rewritten low leaf, empty slot, new
+    leaf) share one hash3 launch and run as one fold of width 4K."""
+    k = old_root.shape[1]
+    dev = old_root.device
+    leaves = hashing.hash3_leaf(
+        torch.cat([low_leaf_val, low_leaf_val, new_leaf_val], dim=1),
+        torch.cat([low_leaf_next_val, new_leaf_val, new_leaf_next_val], dim=1),
+        torch.cat([low_leaf_next_idx,
+                   index_to_limbs(torch.as_tensor(new_leaf_index, device=dev)),
+                   new_leaf_next_idx], dim=1))
+    zero = torch.as_tensor(field.int_to_node(ZERO_LEAF_HASH), device=dev)
+    low_sibs = _enc_path(low_leaf_proof)
+    new_sibs = _enc_path(new_leaf_proof)
+    low_h = torch.as_tensor(low_leaf_proof_helper, device=dev) != 0
+    new_h = torch.as_tensor(new_leaf_proof_helper, device=dev) != 0
+    roots = hashing.dec_nodes(fold_nodes(
+        torch.cat([leaves[:, :2 * k], zero[:, None].expand(field.WORDS, k),
+                   leaves[:, 2 * k:]], dim=1),
+        torch.cat([low_sibs, low_sibs, new_sibs, new_sibs], dim=2),
+        torch.cat([low_h, low_h, new_h, new_h], dim=1)))
+    computed, interim, slot_root, final = roots.split(k, dim=1)
+    non_inclusion = (
+        _bound_ok(low_leaf_next_val, new_leaf_val, is_new_leaf_largest)
+        & field.eq(computed, old_root)
+        & field.less_than(low_leaf_val, new_leaf_val))
+    inherit = field.eq(new_leaf_next_val, low_leaf_next_val) & \
+        field.eq(new_leaf_next_idx, low_leaf_next_idx)
+    return (non_inclusion & field.eq(slot_root, interim) & inherit
+            & field.eq(final, new_root))
+
+
 class IndexedMerkleTree:
     """Dense indexed Merkle tree over 2^depth slots on one device, all-empty
     at construction (every preimage (0, 0, 0)).  `device` is where the state
-    lives and the hashes run; it is never picked automatically."""
+    lives and the hashes run: the card unless the caller asks for "cpu"
+    (on a host without CUDA the default raises, as torch does).
 
-    def __init__(self, depth: int, device="cpu"):
+    ``_live`` bounds the slots that can hold a nonzero value (every slot
+    from it on is an empty, non-participant slot), so the sequential low-leaf
+    search and the non-inclusion sort look at ``[0, _live)`` only; it is
+    exact, since such slots can never be a low leaf."""
+
+    def __init__(self, depth: int, device="cuda"):
         self._setup(depth, device)
         n = self.num_slots
         z = lambda: torch.zeros((field.LIMBS, n), dtype=torch.int32,
@@ -299,7 +685,14 @@ class IndexedMerkleTree:
         self.tree_depth = depth
         self.num_slots = 1 << depth
         self.count = 0  # inserts performed (slot cursor)
+        self._live = 1
         self.device = torch.device(device)
+
+    def _advance(self, k: int) -> None:
+        """k more slots consumed; every write so far is at a slot <=
+        count."""
+        self.count += k
+        self._live = max(self._live, self.count + 1)
 
     # -- queries -------------------------------------------------------------
 
@@ -314,27 +707,64 @@ class IndexedMerkleTree:
         """Sibling path as canonical limbs int32[depth, 16, 1] and helper
         bits int32[depth, 1] (helper = 1 iff the path node is a left
         child)."""
-        sibs, helpers = [], []
-        cur = int(index)
-        for d in range(self.tree_depth):
-            sibs.append(self.levels[d][:, cur ^ 1])
-            helpers.append(1 if cur % 2 == 0 else 0)
-            cur >>= 1
-        proof = hashing.dec_nodes(torch.stack(sibs, dim=1).contiguous())
-        return (proof.T.contiguous()[:, :, None],
-                torch.tensor(helpers, dtype=torch.int32,
-                             device=self.device)[:, None])
+        idx = torch.full((1,), int(index), dtype=torch.int64,
+                         device=self.device)
+        proof, helpers = _gather_proof(self.levels, idx, self.tree_depth)
+        return _dec_path(proof), helpers
+
+    def verify_proof(self, leaf, index: int, root, proof) -> bool:
+        """Verify by index parity (reference src/utils.rs:87-107; ``imt_tpu``
+        :1022).  Stateless: recomputes the root from the proof alone, on
+        the tree's device."""
+        return bool(verify_proofs(leaf, [index], root, proof, self.device)[0])
 
     def get_leaf_ints(self, index: int):
         return tuple(field.limbs_to_int(x[:, index].cpu())
                      for x in (self.vals, self.next_vals, self.next_idxs))
 
+    def non_inclusion_witness(self, values) -> NonInclusionWitness:
+        """Batched non-membership witnesses for `values` (``imt_tpu``
+        :1036): a list of python ints or packed canonical limbs [16, K].
+        ok=False lanes mean the value is present (or 0): no witness
+        exists."""
+        queries, k = _as_limb_batch(values, self.device)
+        GLOBAL_METRICS.record_queries(k)
+        live = self._live
+        w = NonInclusionWitness(**_non_inclusion(
+            self.vals[:, :live], self.next_vals[:, :live],
+            self.next_idxs[:, :live], self.levels, queries, self.tree_depth))
+        if _debug_witness:
+            check_non_inclusion_witness(w, queries)
+        return w
+
     # -- mutation ------------------------------------------------------------
 
-    def insert(self, value: int):
-        raise NotImplementedError(
-            "sequential insert is not ported yet (ROADMAP.md Queue 1: "
-            "sequential insert and the predicates)")
+    def insert(self, value: int) -> InsertWitness:
+        """Sequential insert with the full witness bundle (``imt_tpu``
+        :1065; reference parity): a one-lane ``insert_seq``."""
+        return self.insert_seq([value])
+
+    def insert_seq(self, values) -> InsertWitness:
+        """Strictly sequential inserts, each seeing the state the previous
+        one left (the reference's test loop, src/indexed_merkle_tree.rs:
+        710-802; ``imt_tpu`` :1165), as a python loop of ``_insert_step``.
+        `values` is a list of python ints or packed canonical limbs
+        [16, C].  Returns one InsertWitness with C lanes in the batch layout
+        ([16, C] / [depth, 16, C]); the loop itself never waits for the
+        device."""
+        new_vals, c = _as_limb_batch(values, self.device)
+        if self.count + c >= self.num_slots:
+            raise ValueError("tree full")
+        steps = []
+        for i in range(c):
+            steps.append(_insert_step(self, new_vals[:, i:i + 1]))
+            self._advance(1)
+        w = _stack_witness(steps)
+        GLOBAL_METRICS.record_hashes(c * (2 + 2 * self.tree_depth))
+        GLOBAL_METRICS.record_inserts(int(w.ok.sum()), c - int(w.ok.sum()))
+        if _debug_witness:
+            check_insert_witness(w)
+        return w
 
     def insert_batch(self, values, witness: bool = False) -> np.ndarray:
         """Batched insert with sequential semantics, sort-resolved, in place.
@@ -353,7 +783,7 @@ class IndexedMerkleTree:
             self.num_slots, k)
         _update_paths_batch(self.levels, low_idx, low_hash, slab_start,
                             slab_hash, depth, _crossover(depth, k))
-        self.count += k
+        self._advance(k)
         GLOBAL_METRICS.record_hashes(_batch_hash_count(depth, k))
         ok = ok.cpu().numpy()
         GLOBAL_METRICS.record_inserts(int(ok.sum()), k - int(ok.sum()))
@@ -373,14 +803,19 @@ class IndexedMerkleTree:
         }
 
     @classmethod
-    def from_arrays(cls, arrays: dict, device="cpu") -> "IndexedMerkleTree":
-        """Rebuild a tree from ``to_arrays()`` output of either package."""
+    def from_arrays(cls, arrays: dict, device="cuda") -> "IndexedMerkleTree":
+        """Rebuild a tree from ``to_arrays()`` output of either package, on
+        `device`."""
         tree = cls.__new__(cls)
         tree._setup(int(arrays["depth"]), device)
         tree.count = int(arrays["count"])
+        vals = np.asarray(arrays["vals"])
+        nonzero = np.flatnonzero(vals.any(axis=0))
+        tree._live = int(nonzero[-1]) + 1 if nonzero.size else 1
         dev = lambda a: torch.as_tensor(
-            np.asarray(a).astype(np.int32), device=tree.device)
-        tree.vals = dev(arrays["vals"])
+            np.ascontiguousarray(a, dtype=np.int64).astype(np.int32),
+            device=tree.device)
+        tree.vals = dev(vals)
         tree.next_vals = dev(arrays["next_vals"])
         tree.next_idxs = dev(arrays["next_idxs"])
         leaves = hashing.hash3_leaf(tree.vals, tree.next_vals, tree.next_idxs)

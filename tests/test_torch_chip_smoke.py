@@ -1,5 +1,6 @@
-"""chip_smoke.py without a card (CPU): its depth-6 oracle replay on CPU
-tensors, and its refusal to run without CUDA or outside a checkout."""
+"""chip_smoke.py without a card (CPU): its depth-6 oracle replay and golden
+path on CPU tensors, its kernel record and SASS census, and its refusal to
+run without CUDA or outside a checkout."""
 
 import os
 import shutil
@@ -9,6 +10,7 @@ import sys
 import pytest
 import torch
 
+from imt_tpu_torch.ops import field, vpu_roofline
 from imt_tpu_torch.tree import indexed, reference_oracle
 
 torch.set_num_threads(1)
@@ -38,21 +40,102 @@ def test_small_replay_matches_oracle_on_cpu():
 
 def test_kernel_record_names_the_replaced_code():
     smoke = _smoke_module()
-    names = list(smoke.KERNELS)
-    launches = {n: int(smoke.KERNELS[n][1]) for n in names}
-    rec = smoke.kernel_record(dict.fromkeys(names, 0), launches,
-                              dict.fromkeys(names, (1.0, 2.0)))
+    bodies = list(vpu_roofline.BODIES)
+    names = list(smoke.POSEIDON) + bodies
+    launches = {p: dict.fromkeys(names, 1)
+                for p in ("insert_batch", "sequential", "probe")}
+    numbers = {"times": dict.fromkeys(names, (1.0, 2.0)),
+               "bounds": dict.fromkeys(names, (0.5, "operations")),
+               "probe_launches": dict.fromkeys(bodies, 1)}
+    rec = smoke.kernel_record(dict.fromkeys(names, 0), launches, numbers)
     assert [e["name"] for e in rec["kernels"]] == [
-        "hash3_leaf", "hash2_nodes", "nodes_to_limbs"]
-    assert [e["name"] for e in rec["off_path_kernels"]] == [
-        "permute_n", "limbs_to_nodes"]
+        "hash3_leaf", "hash2_nodes", "nodes_to_limbs",
+        "limbs_to_nodes"] + bodies
+    assert [e["name"] for e in rec["off_path_kernels"]] == ["permute_n"]
+    keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
     for e in rec["kernels"] + rec["off_path_kernels"]:
+        assert keys <= set(e), e
         assert e["route"] == "cuda" and os.path.isfile(
             os.path.join(ROOT, e["source"]))
         path, line = e["replaces"].split(":")
         with open(os.path.join(ROOT, path)) as f:
-            assert f.readlines()[int(line) - 1].startswith("def "), e
-    assert all(e["launches"] == 1 for e in rec["kernels"])
+            assert f.readlines()[int(line) - 1].lstrip().startswith("def "), e
+    launched = {e["name"]: e["launches"] for e in rec["kernels"]}
+    assert launched["hash3_leaf"] == 2 and launched["limbs_to_nodes"] == 1
+    assert all(launched[b] == 1 for b in bodies)
+
+
+def _fake_sass(every: dict, cond: dict) -> str:
+    """A permute_kernel listing shaped like the built one: a perms loop
+    around a round loop whose one forward branch skips a block."""
+    lines = ["\t\tFunction : _ZN4anon14permute_kernelEPKjPjxi"]
+    addr = [0x100]
+
+    def emit(op, args="RZ"):
+        lines.append(f"        /*{addr[0]:04x}*/                   {op} "
+                     f"{args} ;  /* 0x0 */")
+        addr[0] += 16
+
+    perms_lo = addr[0]
+    emit("IMAD.MOV.U32")
+    rounds_lo = addr[0]
+    for op, n in every.items():
+        for _ in range(n):
+            emit(op)
+    skip_at = addr[0]
+    emit("@!P1 BRA", "0x0")                   # patched below
+    for op, n in cond.items():
+        for _ in range(n):
+            emit(op)
+    lines[-1 - sum(cond.values())] = lines[-1 - sum(cond.values())].replace(
+        "BRA 0x0", f"BRA {addr[0]:#x}")
+    assert f"{skip_at:04x}" in lines[-1 - sum(cond.values())]
+    emit("@P1 BRA", f"{rounds_lo:#x}")
+    emit("@!P6 BRA", f"{perms_lo:#x}")
+    emit("EXIT", "")
+    return "\n".join(lines) + "\n\t\tFunction : other\n"
+
+
+def test_sass_census_counts_the_round_loop():
+    smoke = _smoke_module()
+    every = {"IMAD.WIDE.U32": 1440, "IMAD.HI.U32": 96, "IMAD": 97,
+             "IADD3": 3}
+    cond = {"IMAD.WIDE.U32": 720, "IMAD.HI.U32": 48, "IMAD": 48}
+    per = smoke.sass_census(_fake_sass(every, cond))
+    assert per["IMAD.WIDE.U32"] == 65 * 1440 + 8 * 720
+    assert per["IMAD.HI.U32"] + per["IMAD.WIDE.U32"] == 828 * 128
+    assert per["IMAD"] == 65 * 97 + 8 * 48 and per["IADD3"] == 65 * 3
+    with pytest.raises(AssertionError, match="wide multiplies"):
+        smoke.sass_census(_fake_sass(dict(every, IADD3=3, **{
+            "IMAD.WIDE.U32": 1441}), cond))
+
+
+def test_bound_counts_the_least_work_schedule():
+    from imt_tpu.ops import poseidon_opt, poseidon_ref
+    smoke = _smoke_module()
+    params = poseidon_ref.generate_params()
+    assert (smoke.R_F, smoke.R_P) == (params.r_f, params.r_p)
+    # g = 1: every partial round reduces its row 0 (3 products) and both
+    # columns (a product and the old word each)
+    sbox = 2 * 36 + 64 + 3 * 64
+    full, partial = 3 * (sbox + 3 * 64 + 64), sbox + (3 + 2) * 64 + 3 * 64
+    assert smoke.least_perm_work(1) == (8 * full + 57 * partial,
+                                        8 * 3 * 32 + 57 * 48)
+    # the least is at g = 2, where the lazy schedule is still the
+    # permutation, and it is well below what the kernel executes
+    assert smoke.PERM_WORK == smoke.least_perm_work(2) == (60104, 3056)
+    state = [3, 1 << 200, params.mds[0][1]]
+    assert poseidon_opt.permute_opt_lazy(
+        state, poseidon_opt.optimize_params(params), 2) == \
+        poseidon_ref.permute(state, params)
+    assert sum(smoke.PERM_WORK) * 1.7 < smoke.MONT_PER_PERM * (
+        smoke.WIDE_PER_MONT + smoke.NARROW_PER_MONT)
+
+
+def test_golden_path_matches_oracle_on_cpu():
+    _smoke_module().golden_path(indexed, reference_oracle, field,
+                                torch.device("cpu"))
 
 
 def test_exits_nonzero_without_cuda():

@@ -1,5 +1,6 @@
-"""imt_tpu_torch on the card: the CUDA kernel against the plain torch path,
-and the dense insert on CUDA against the same insert on the CPU.
+"""imt_tpu_torch on the card: the CUDA kernels against their plain torch
+versions, and the dense insert, the sequential witness path, the predicates
+and the Merkle tree on CUDA against the same calls on the CPU.
 
 Marked `cuda`; each test skips where torch sees no CUDA device.  This file
 imports nothing of JAX, so on the GPU host (which has none) it runs without
@@ -14,8 +15,10 @@ import numpy as np
 import pytest
 import torch
 
-from imt_tpu_torch import FIELD_MODULUS, IndexedMerkleTree
-from imt_tpu_torch.ops import field, poseidon, poseidon_cuda
+from imt_tpu_torch import FIELD_MODULUS, IndexedMerkleTree, MerkleTree
+from imt_tpu_torch.ops import (field, poseidon, poseidon_cuda, vpu_roofline,
+                               vpu_roofline_cuda)
+from imt_tpu_torch.tree import indexed
 
 pytestmark = pytest.mark.cuda
 
@@ -69,7 +72,8 @@ def test_wrappers_refuse_bad_tensors(cuda):
 def test_insert_batch_on_cuda_equals_cpu(cuda):
     batches = [[30, 10, 20, 5, 50, 35, 0, 10], [7, 7, 0, 31, 32, 33, 1, 2],
                field.random_limbs(5, 64)]
-    gpu, cpu = IndexedMerkleTree(8, device=cuda), IndexedMerkleTree(8)
+    gpu = IndexedMerkleTree(8, device=cuda)
+    cpu = IndexedMerkleTree(8, device="cpu")
     poseidon_cuda.reset_launch_counts()
     for b in batches:
         assert gpu.insert_batch(b).tolist() == cpu.insert_batch(b).tolist()
@@ -80,3 +84,106 @@ def test_insert_batch_on_cuda_equals_cpu(cuda):
     for d, (g, c) in enumerate(zip(gpu.levels, cpu.levels)):
         assert torch.equal(g.cpu(), c), d
     assert gpu.get_root_int() == cpu.get_root_int()
+
+
+@pytest.mark.parametrize("name", list(vpu_roofline.BODIES))
+def test_roofline_kernel_equals_plain(cuda, name):
+    vpu_roofline_cuda.reset_launch_counts()
+    for rows, b, k in ((3, 1000, 5), (48, 257, 1)):
+        x = vpu_roofline.seeded_input(name, rows, b, seed=2, device=cuda)
+        got = vpu_roofline_cuda.roofline(name, x, k)
+        want = vpu_roofline.plain(name, x, k)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (rows, b, k)
+        assert torch.equal(vpu_roofline.run(name, x, k), got)
+    assert vpu_roofline_cuda.LAUNCHES[name] == 4
+
+
+def test_roofline_wrapper_refuses_bad_tensors(cuda):
+    x = torch.zeros((4, 8), device=cuda)
+    with pytest.raises(TypeError):
+        vpu_roofline_cuda.roofline("imad16", x, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        vpu_roofline_cuda.roofline("mul", x[:, ::2], 1)
+    with pytest.raises(ValueError, match="unknown body"):
+        vpu_roofline_cuda.roofline("nope", x, 1)
+
+
+def _fields(w) -> dict:
+    return {k: v.cpu() if isinstance(v, torch.Tensor) else v
+            for k, v in w.__dict__.items()}
+
+
+def test_sequential_path_on_cuda_equals_cpu(cuda):
+    vals = [30, 10, 20, 5, 50, 35, 10, 0, 2 ** 250]
+    gpu = IndexedMerkleTree(6, device=cuda)
+    cpu = IndexedMerkleTree(6, device="cpu")
+    for t in (gpu, cpu):
+        t.insert_batch([7, 70])
+    poseidon_cuda.reset_launch_counts()
+    wg, wc = _fields(gpu.insert_seq(vals)), _fields(cpu.insert_seq(vals))
+    assert poseidon_cuda.LAUNCHES["hash2_nodes"] >= 6 * len(vals)
+    for k in wc:
+        assert np.array_equal(np.asarray(wg[k]), np.asarray(wc[k])), k
+    assert gpu.get_root_int() == cpu.get_root_int()
+    queries = [5, 6, 40, 70, 0, 2 ** 251]
+    ng = gpu.non_inclusion_witness(queries)
+    nc = _fields(cpu.non_inclusion_witness(queries))
+    for k, v in _fields(ng).items():
+        assert np.array_equal(np.asarray(v), np.asarray(nc[k])), k
+    w = gpu.insert_seq([11, 11])
+    pred = indexed.insert_leaf(
+        w.old_root, w.low_leaf_val, w.low_leaf_next_val, w.low_leaf_next_idx,
+        w.low_leaf_proof, w.low_leaf_proof_helper, w.new_root,
+        w.new_leaf_val, w.new_leaf_next_val, w.new_leaf_next_idx,
+        w.new_leaf_index, w.new_leaf_proof, w.new_leaf_proof_helper,
+        w.is_new_leaf_largest)
+    assert pred.device.type == "cuda" and pred.tolist() == [True, False]
+    q = torch.as_tensor(field.ints_to_limbs(queries), device=cuda)
+    assert indexed.verify_non_inclusion(
+        ng.root, ng.low_leaf_val, ng.low_leaf_next_val, ng.low_leaf_next_idx,
+        ng.low_leaf_proof, ng.low_leaf_proof_helper, q,
+        ng.is_new_leaf_largest).cpu().numpy()[ng.ok].all()
+
+
+def test_merkle_tree_on_cuda_equals_cpu(cuda):
+    leaves = _limbs(4, 64, "cpu")
+    leaves[15] &= 0x2FFF                       # canonical values < p
+    gpu, cpu = MerkleTree.build(leaves), MerkleTree.build(leaves, "cpu")
+    assert gpu.device.type == "cuda"
+    for d, (g, c) in enumerate(zip(gpu.levels, cpu.levels)):
+        assert torch.equal(g.cpu(), c), d
+    idx = [0, 9, 63]
+    pg, hg = gpu.get_proofs(idx)
+    assert gpu.verify_proofs(leaves[:, idx], idx, gpu.get_root(), pg).all()
+    bad = pg.clone()
+    bad[2, 0, 1] ^= 1
+    assert gpu.verify_proofs(leaves[:, idx], idx, gpu.get_root(),
+                             bad).tolist() == [True, False, True]
+
+
+def test_numpy_arguments_verify_on_the_card(cuda):
+    leaves = _limbs(5, 16, "cpu")
+    leaves[15] &= 0x2FFF                       # canonical values < p
+    gpu = MerkleTree.build(leaves)
+    idx = [3, 12]
+    proof, helpers = (x.cpu().numpy() for x in gpu.get_proofs(idx))
+    root, leaf = gpu.get_root().cpu().numpy(), leaves[:, idx].numpy()
+    poseidon_cuda.reset_launch_counts()
+    assert gpu.verify_proofs(leaf, idx, root, proof).all()
+    assert poseidon_cuda.LAUNCHES["hash2_nodes"] == gpu.depth
+    from imt_tpu_torch.ops import gates
+    from imt_tpu_torch.tree import merkle
+    got = gates.verify_merkle_proof(root, leaf, proof, helpers)
+    assert got.device.type == "cuda" and got.tolist() == [True, True]
+    assert merkle.verify_proofs(leaf, idx, root, proof).all()
+    assert poseidon_cuda.LAUNCHES["hash2_nodes"] == 3 * gpu.depth
+    tree = IndexedMerkleTree(4)
+    tree.insert_batch([9])
+    p, _ = tree.get_proof(1)
+    leaf1 = indexed.hashing.hash3(*(x[:, 1:2].contiguous() for x in (
+        tree.vals, tree.next_vals, tree.next_idxs))).cpu().numpy()
+    poseidon_cuda.reset_launch_counts()
+    assert tree.verify_proof(leaf1, 1, tree.get_root().cpu().numpy(),
+                             p.cpu().numpy())
+    assert poseidon_cuda.LAUNCHES["hash2_nodes"] == 4

@@ -95,3 +95,69 @@ def test_node_packing_roundtrip():
     # a node is the Montgomery form: unpacked, it equals to_mont's limbs
     assert torch.equal(work, field.to_mont(_work(xs)))
     assert field.eq(work, work).all() and not field.is_zero(work[:, 3:]).any()
+
+
+def test_sub_mod_matches_imt_tpu():
+    # inputs < 2p: canonical values and values in [p, 2p)
+    xs = _values(14, 29) + [P + 3, 2 * P - 1, 0]
+    ys = _values(15, 29)[::-1] + [P - 1, 2 * P - 1, 2 * P - 1]
+    a = torch.as_tensor(np.array([[(x >> (16 * i)) & 0xFFFF for x in xs]
+                                  for i in range(16)], dtype=np.int32))
+    b = torch.as_tensor(np.array([[(y >> (16 * i)) & 0xFFFF for y in ys]
+                                  for i in range(16)], dtype=np.int32))
+    got = field.sub_mod(a, b)
+    want = jfield.sub_mod(jnp.asarray(a.numpy().astype(np.uint32)),
+                          jnp.asarray(b.numpy().astype(np.uint32)))
+    assert got.dtype == torch.int32
+    assert np.array_equal(got.numpy().astype(np.int64),
+                          np.asarray(want).astype(np.int64))
+    vals = field.limbs_to_ints(got.numpy())
+    assert all(v < 2 * P for v in vals)
+    assert [v % P for v in vals] == [(x - y) % P for x, y in zip(xs, ys)]
+
+
+def _comparator_lanes():
+    """The equal-limb classes of tests/test_field.py: equal values, equal
+    high halves, equal low halves, off-by-one in the lowest limb, and the
+    reference's masked-typo class (equal low limbs, differing high)."""
+    pow128 = 1 << 128
+    cases = [
+        (5, 7), (7, 5), (5, 5),
+        (3 * pow128 + 10, 3 * pow128 + 11), (3 * pow128 + 11, 3 * pow128 + 10),
+        (2 * pow128 + 9, 5 * pow128 + 1), (5 * pow128 + 1, 2 * pow128 + 9),
+        (7 * pow128 + 42, 9 * pow128 + 42), (9 * pow128 + 42, 7 * pow128 + 42),
+        (P - 1, P - 2), (0, P - 1),
+    ]
+    rng = np.random.default_rng(16)
+    for _ in range(64):
+        x = int.from_bytes(rng.bytes(32), "little") % P
+        y = int.from_bytes(rng.bytes(32), "little") % P
+        hi, lo = y >> 128 << 128, y & (pow128 - 1)
+        cases += [(x, y), (x, x), (x, (x >> 128 << 128) | lo),
+                  (x, hi | (x & (pow128 - 1))), (x, x ^ 1)]
+    return cases
+
+
+def test_less_than_matches_imt_tpu_on_equal_limb_lanes():
+    cases = _comparator_lanes()
+    a = field.ints_to_limbs([c[0] for c in cases])
+    b = field.ints_to_limbs([c[1] for c in cases])
+    got = field.less_than(torch.as_tensor(a), torch.as_tensor(b)).numpy()
+    want = np.asarray(jfield.less_than(jnp.asarray(a.astype(np.uint32)),
+                                       jnp.asarray(b.astype(np.uint32))))
+    assert got.dtype == bool
+    assert np.array_equal(got, want)
+    assert got.tolist() == [x < y for x, y in cases]
+    # a column broadcasts against the batch, as in the low-leaf search
+    col = torch.as_tensor(a[:, 3:4])
+    assert field.less_than(torch.as_tensor(a), col).tolist() == [
+        c[0] < cases[3][0] for c in cases]
+
+
+def test_select_matches_imt_tpu():
+    xs, ys = _values(17, 5), _values(18, 5)
+    a, b = field.ints_to_limbs(xs), field.ints_to_limbs(ys)
+    cond = np.array([True, False, True, False, False, True, True, False])
+    got = field.select(cond, torch.as_tensor(a), torch.as_tensor(b))
+    want = jfield.select(jnp.asarray(cond), jnp.asarray(a), jnp.asarray(b))
+    assert np.array_equal(got.numpy(), np.asarray(want))

@@ -76,7 +76,7 @@ def _torch_levels(tree) -> list:
 @pytest.fixture(scope="module")
 def replay():
     jt = jindexed.IndexedMerkleTree(DEPTH)
-    tt = IndexedMerkleTree(DEPTH)
+    tt = IndexedMerkleTree(DEPTH, device="cpu")
     steps = []
     for b in BATCHES:
         ok_j = np.asarray(jt.insert_batch(b))
@@ -87,7 +87,7 @@ def replay():
 
 
 def test_empty_tree_root():
-    t = IndexedMerkleTree(3)
+    t = IndexedMerkleTree(3, device="cpu")
     assert t.get_root_int() == indexed._zero_level_roots(3)[-1]
     assert t.get_leaf_ints(0) == (0, 0, 0)
     assert indexed._zero_level_roots(3)[0] == ZERO_LEAF_HASH
@@ -134,7 +134,7 @@ def test_arrays_carry_state_across(replay):
     for key in a:
         assert np.asarray(b[key]).dtype == np.asarray(a[key]).dtype, key
         assert np.array_equal(a[key], b[key]), key
-    t2 = IndexedMerkleTree.from_arrays(a)
+    t2 = IndexedMerkleTree.from_arrays(a, device="cpu")
     assert t2.count == jt.count
     assert t2.get_root_int() == jt.get_root_int()
     for d in range(DEPTH + 1):
@@ -176,21 +176,22 @@ def test_helpers_match_imt_tpu():
 
 
 def test_tree_full_raises():
-    t = IndexedMerkleTree(2)
+    t = IndexedMerkleTree(2, device="cpu")
     with pytest.raises(ValueError, match="tree full"):
         t.insert_batch([1, 2, 3, 4])
     assert t.count == 0
 
 
 def test_bad_inputs_and_unported_paths_raise():
-    t = IndexedMerkleTree(2)
+    t = IndexedMerkleTree(2, device="cpu")
     with pytest.raises(ValueError, match="16, K"):
         t.insert_batch(np.zeros((8, 2), dtype=np.uint32))
     with pytest.raises(ValueError, match="2\\^16"):
         t.insert_batch(np.full((16, 1), 1 << 16, dtype=np.int64))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t.insert(5)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         t.insert_batch([5], witness=True)
+    with pytest.raises(ValueError, match="tree full"):
+        t.insert_seq([5, 6, 7, 8])
+    assert t.count == 0
     with pytest.raises(ValueError, match="depth"):
-        IndexedMerkleTree(0)
+        IndexedMerkleTree(0, device="cpu")

@@ -8,7 +8,8 @@ import sys
 import pytest
 import torch
 
-from imt_tpu_torch.ops import _build, hashing, poseidon_cuda
+from imt_tpu_torch.ops import (_build, hashing, poseidon_cuda, vpu_roofline,
+                               vpu_roofline_cuda)
 
 torch.set_num_threads(1)
 
@@ -19,6 +20,8 @@ MODULES = [
     "imt_tpu_torch.ops.poseidon_ref", "imt_tpu_torch.ops.poseidon_spec",
     "imt_tpu_torch.ops.poseidon", "imt_tpu_torch.ops.poseidon_cuda",
     "imt_tpu_torch.ops.hashing", "imt_tpu_torch.ops._build",
+    "imt_tpu_torch.ops.gates", "imt_tpu_torch.ops.vpu_roofline",
+    "imt_tpu_torch.ops.vpu_roofline_cuda", "imt_tpu_torch.tree.merkle",
     "imt_tpu_torch.tree.indexed", "imt_tpu_torch.tree.reference_oracle",
     "imt_tpu_torch.utils.observability",
 ]
@@ -29,7 +32,7 @@ def test_import_leaves_jax_and_imt_tpu_out():
         "import importlib, sys\n"
         f"for m in {MODULES!r}: importlib.import_module(m)\n"
         "import imt_tpu_torch\n"
-        "t = imt_tpu_torch.IndexedMerkleTree(2)\n"
+        "t = imt_tpu_torch.IndexedMerkleTree(2, device='cpu')\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'imt_tpu'))\n"
         "print(repr(bad))\n")
@@ -70,14 +73,28 @@ def test_kernel_wrappers_raise_on_cpu_tensors(name):
     assert poseidon_cuda.LAUNCHES == before
 
 
+@pytest.mark.parametrize("name", list(vpu_roofline.BODIES))
+def test_roofline_wrapper_raises_on_cpu_tensors(name):
+    x = vpu_roofline.seeded_input(name, 2, 4, device="cpu")
+    before = dict(vpu_roofline_cuda.LAUNCHES)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        vpu_roofline_cuda.roofline(name, x, 1)
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        vpu_roofline.measure(name, 1980.0, 2, 4, 1, 2, device="cpu")
+    assert vpu_roofline_cuda.LAUNCHES == before
+
+
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
     monkeypatch.delenv("CUDA_PATH", raising=False)
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setattr(_build, "CUDA_DEFAULT_HOME", str(tmp_path / "none"))
-    monkeypatch.setattr(_build, "_lib", None)
+    monkeypatch.setattr(_build, "_libs", {})
+    for name in _build.LIBRARIES:
+        with pytest.raises(RuntimeError, match="nvcc not found"):
+            _build.load(name)
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        _build.load()
+        _build.build()
 
 
 def test_dispatch_follows_the_tensor_device():

@@ -30,7 +30,7 @@ def test_insert_batch_root_matches_sequential_oracle():
     oracle = reference_oracle.OracleIndexedTree(3)
     for v in SEQ:
         oracle.insert(v)
-    tree = IndexedMerkleTree(3)
+    tree = IndexedMerkleTree(3, device="cpu")
     assert np.asarray(tree.insert_batch(SEQ)).all()
     assert tree.get_root_int() == oracle.get_root()
     for slot in range(1 << 3):

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Where a dense insert_batch of imt_tpu_torch spends its time on one GPU.
+"""Where imt_tpu_torch's depth-24 paths spend their time on one GPU.
 
     python tools/profile_insert_torch.py
 
@@ -7,12 +7,15 @@ Needs a CUDA device (it refuses to run on the CPU).  Builds a depth-24 tree
 on the card (the shape chip_smoke.py drives), runs one warm-up batch of
 K = 4096, then:
 
-1. times the two halves of the step (``_plan_batch``: sort, links, scatters
-   and the dirty-leaf hash3; ``_update_paths_batch``: the level hashes)
-   with a synchronise after each, on the host clock;
+1. times the two halves of the batched step (``_plan_batch``: sort, links,
+   scatters and the dirty-leaf hash3; ``_update_paths_batch``: the level
+   hashes) with a synchronise after each, on the host clock;
 2. traces three whole ``insert_batch`` calls with ``torch.profiler`` and
    prints the device time by kernel, and the device's busy and idle share
-   of the traced wall time.
+   of the traced wall time;
+3. the same for the sequential witness path: ``insert_seq`` of 16 values
+   (after a warm-up of 4), then one ``non_inclusion_witness`` of 4096
+   queries.
 
 Values are numpy-seeded 253-bit random limbs.  Every number is printed with
 the card's name and power limit.
@@ -34,7 +37,7 @@ from imt_tpu_torch import IndexedMerkleTree  # noqa: E402
 from imt_tpu_torch.ops import field  # noqa: E402
 from imt_tpu_torch.tree import indexed  # noqa: E402
 
-DEPTH, K, BATCHES, SEED = 24, 4096, 3, 7
+DEPTH, K, BATCHES, SEQ, SEED = 24, 4096, 3, 16, 7
 
 
 def _device_time_us(evt) -> float:
@@ -82,13 +85,29 @@ def main() -> int:
           f"_update_paths_batch ms {[1e3 * s for s in paths_s]} [{card}]")
 
     # 2. whole insert_batch calls under the profiler
-    from torch.profiler import ProfilerActivity, profile
     batches = [batch() for _ in range(BATCHES)]
+    _trace(lambda: [tree.insert_batch(b) for b in batches],
+           f"{BATCHES} traced insert_batch calls", card)
+
+    # 3. the sequential witness path
+    tree.insert_seq(batch()[:, :4])                            # warm-up
+    seq, queries = batch()[:, :SEQ], batch()
+    _trace(lambda: tree.insert_seq(seq),
+           f"insert_seq of {SEQ} values (witness included)", card)
+    _trace(lambda: tree.non_inclusion_witness(queries),
+           f"non_inclusion_witness of {k} queries", card)
+    return 0
+
+
+def _trace(fn, label: str, card: str) -> None:
+    """Run fn under torch.profiler; print the wall time, the device's busy
+    and idle share of it, and the device time by kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for b in batches:
-            tree.insert_batch(b)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     # kernel events only (device_type CUDA): the aten ops that launch them
@@ -97,15 +116,13 @@ def main() -> int:
             if str(e.device_type).endswith("CUDA")]
     rows = [r for r in rows if r[1] > 0]
     busy_us = sum(r[1] for r in rows)
-    print(f"{BATCHES} traced insert_batch calls: wall ms "
-          f"{wall_us / 1e3}; device busy ms {busy_us / 1e3} "
+    print(f"{label}: wall ms {wall_us / 1e3}; device busy ms {busy_us / 1e3} "
           f"({100 * busy_us / wall_us:.1f}% busy, "
           f"{100 - 100 * busy_us / wall_us:.1f}% idle) [{card}]")
     print("device time by kernel (ms total, launches, share of busy):")
     for key, us, n in sorted(rows, key=lambda r: -r[1])[:25]:
         print(f"  {us / 1e3:10.3f} ms  {n:6d}  {100 * us / busy_us:5.1f}%  "
               f"{key[:100]}")
-    return 0
 
 
 if __name__ == "__main__":
