@@ -11,13 +11,16 @@ failure raises and the exit code is not 0:
 
 1. device: CUDA present; the card's name, power limit and SM clock; the
    least multiply-adds per permutation that the bounds count, beside the
-   kernel's own;
+   two cores' own;
 2. build: nvcc, with the build times, the ptxas register report, and the
-   SASS census of the Poseidon permutation (its multiply-adds, counted in
-   the built library, against the source's count);
+   SASS census of both Poseidon permutation cores, the dense one of
+   permute_kernel and the sparse one of the hash kernels (instructions per
+   permutation by opcode, the multiply-adds counted in the built library
+   against the source's count);
 3. Poseidon kernel vs plain, bit for bit, at a ragged width of 65537 lanes
-   with edge values and at the main path's own widths, and the H(0,0,0)
-   and poseidonperm_x5_254_3 anchors;
+   with edge values and at the main path's own widths (down to the
+   sequential path's 2 and 1), and the H(0,0,0) and poseidonperm_x5_254_3
+   anchors;
 3b. every probe body (``csrc/vpu_roofline.cu``) vs plain, bit for bit, at
    [48, 65537] with k = 64 and k = 1, and at [48, 65536] with k = 4;
 4. the batched path: four depth-24 batches of 4096 values with planted
@@ -34,7 +37,9 @@ failure raises and the exit code is not 0:
 5. numbers: depth-24 inserts/s (batched and sequential), non-inclusion
    witnesses/s, the probe's rates per body (its own path), and each
    kernel's time beside its plain version's and its bound, the Poseidon
-   entry points also at a width that fills the card.
+   entry points also at a width that fills the card, and hash2 (the sparse
+   core) against permute_n(st, 2) (the dense core) at widths 2, 8192 and
+   2^17.
 
 The line before the last is the kernels' JSON record (the paths' kernels,
 then the entry point no path runs); the last line is ``{"ok": true,
@@ -56,6 +61,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 DEPTH, K, N_BATCHES = 24, 4096, 4
 RAGGED = 65537
 TIMING_WIDTH = 8192
+SEQ_WIDTH = 2                 # a sequential insert's hash2 launches
+# phase 3: ragged widths, the batched path's (2K, K), the sequential one's (2)
+PHASE3_WIDTHS = (RAGGED, 2 * K, K, K // 2 + 1, 129, SEQ_WIDTH, 1)
 FILL_WIDTH = 1 << 17          # 132 SMs x ~8 blocks of 128 lanes
 SEQ_VALUES = 64
 QUERIES = 4096
@@ -90,11 +98,16 @@ POSEIDON = {
 }
 ROOFLINE_REPLACES = "tools/vpu_roofline.py:83"
 
-# What the port's kernel executes today, counted from the source and held
-# against its SASS in phase 2: a permutation is 828 Montgomery products (8
-# full rounds x 18, 57 partial x 12), each 128 wide (32x32->64-bit)
-# multiply-adds and 8 32-bit ones (mont_mul, poseidon_bn254.cu:114-144).
+# What the port's kernels execute, counted from the source and held against
+# their SASS in phase 2.  The dense core (permute_kernel): a permutation is
+# 828 Montgomery products (8 full rounds x 18, 57 partial x 12), each 128
+# wide (32x32->64-bit) multiply-adds and 8 32-bit ones (mont_mul).  The
+# sparse core (hash2_kernel, hash3_kernel): 600 products (8 full rounds x
+# 18, 57 partial x 8), of the same 128 wide and 8 32-bit multiply-adds
+# (mont_mul_cc: each row's 8 products as 64-bit multiply-adds).
 MONT_PER_PERM = 828
+SPARSE_MONT_PER_PERM = 600
+ADDRESSING = 16    # wide multiplies a lane may spend on its addresses
 WIDE_PER_MONT, NARROW_PER_MONT = 128, 8
 
 # What the bound counts: the least work of each function among the
@@ -167,26 +180,48 @@ _SASS_INS = re.compile(
     r"^\s+/\*([0-9a-f]{4,})\*/\s+(@!?U?P[0-9T]\s+)?([A-Z0-9_.]+)\s*([^;]*);")
 
 
-def sass_census(sass: str) -> dict:
-    """Instructions per permutation in permute_kernel's SASS: the round
-    loop (the innermost backward branch) runs 65 times, and the block its
-    one forward branch skips runs on the 8 full rounds (or, were the branch
-    the other way round, the 57 partial ones: the trip count that makes the
-    wide multiplies come out at 828 products' worth is taken, and if
-    neither does, the census fails).  Returns counts by opcode."""
-    body = sass[sass.index("permute_kernelE"):]
+def kernel_instructions(sass: str, kernel: str) -> list:
+    """(address, opcode, operands) of each instruction of `kernel`'s SASS."""
+    body = sass[sass.index(kernel + "E"):]
     body = body[:body.find("Function :")] if "Function :" in body else body
     ins = []
     for line in body.splitlines():
         m = _SASS_INS.match(line)
         if m:
             ins.append((int(m.group(1), 16), m.group(3), m.group(4)))
-    branches = []
+    return ins
+
+
+def _branches(ins) -> list:
+    """(address, target) of every branch with a literal target."""
+    out = []
     for addr, op, args in ins:
         if op == "BRA":
             t = re.match(r"\s*(0x[0-9a-f]+)", args)
             if t:
-                branches.append((addr, int(t.group(1), 16)))
+                out.append((addr, int(t.group(1), 16)))
+    return out
+
+
+def _count(ins, a: int, b: int) -> dict:
+    """Opcode counts of the instructions at addresses [a, b)."""
+    c = {}
+    for addr, op, _ in ins:
+        if a <= addr < b:
+            c[op] = c.get(op, 0) + 1
+    return c
+
+
+def sass_census(sass: str) -> dict:
+    """Instructions per permutation in permute_kernel's SASS (the dense
+    core): the round loop (the innermost backward branch) runs 65 times,
+    and the block its one forward branch skips runs on the 8 full rounds
+    (or, were the branch the other way round, the 57 partial ones: the trip
+    count that makes the wide multiplies come out at 828 products' worth is
+    taken, and if neither does, the census fails).  Returns counts by
+    opcode."""
+    ins = kernel_instructions(sass, "permute_kernel")
+    branches = _branches(ins)
     loops = sorted((a - t, t, a) for a, t in branches if t < a)
     if not loops:
         raise AssertionError("no loop in permute_kernel's SASS")
@@ -197,14 +232,7 @@ def sass_census(sass: str) -> dict:
                              f"{len(skips)}")
     s_lo, s_hi = skips[0][0] + 16, skips[0][1]
 
-    def count(a, b):
-        c = {}
-        for addr, op, _ in ins:
-            if a <= addr < b:
-                c[op] = c.get(op, 0) + 1
-        return c
-
-    every, cond = count(lo, hi + 16), count(s_lo, s_hi)
+    every, cond = _count(ins, lo, hi + 16), _count(ins, s_lo, s_hi)
     for k in cond:
         every[k] -= cond[k]
     wide_want = MONT_PER_PERM * WIDE_PER_MONT
@@ -218,6 +246,88 @@ def sass_census(sass: str) -> dict:
                          f"the source's {wide_want}")
 
 
+def sparse_census(sass: str) -> dict:
+    """Instructions per permutation of the sparse core, from hash2_kernel's
+    SASS.  The kernel runs two permutations, each a loop of 3 leading full
+    rounds, the last leading round, a loop of 57 partial rounds and a loop
+    of 4 trailing full rounds: six loops without branches inside, in that
+    order, the partial ones having the fewest wide multiplies.  Each loop
+    body (an innermost backward branch's range) counts its trips, the code
+    outside the loops once; the sum is halved.  The source's wide
+    multiplies (IMAD.WIDE.U32 and IMAD.HI.U32) are 128 per product, 600
+    products per permutation, of which 162 are squares; in a square the
+    compiler may share row 0's products a0*aj with the products aj*a0 (7
+    per square).  The census fails unless the count lies between that and
+    the source's count plus a lane's addressing, and the 32-bit products
+    (IMAD: m of each reduction row, 8 per product) are all there.  Returns
+    counts by opcode (halves are kept)."""
+    ins = kernel_instructions(sass, "hash2_kernel")
+    loops = sorted((t, a) for a, t in _branches(ins) if t < a)
+    if len(loops) != 6 or any(loops[i][1] >= loops[i + 1][0]
+                              for i in range(5)):
+        raise AssertionError(f"expected 6 disjoint loops in hash2_kernel's "
+                             f"SASS, got {len(loops)}")
+    backs = {a for _, a in loops}
+    if any(a not in backs and any(t <= a <= b for t, b in loops)
+           for a, _ in _branches(ins)):
+        raise AssertionError("a branch inside a loop of hash2_kernel")
+    wide = lambda c: c.get("IMAD.WIDE.U32", 0) + c.get("IMAD.HI.U32", 0)
+    bodies = [_count(ins, t, a + 16) for t, a in loops]
+    if sorted(range(6), key=lambda i: wide(bodies[i]))[:2] != [1, 4]:
+        raise AssertionError("hash2_kernel's loops are not (full, partial, "
+                             "full) twice")
+    total = _count(ins, 0, 1 << 62)
+    for body, trips in zip(bodies, 2 * (R_F // 2 - 1, R_P, R_F // 2)):
+        for k, v in body.items():
+            total[k] += (trips - 1) * v
+    per = {k: v / 2 for k, v in total.items()}
+    want = SPARSE_MONT_PER_PERM * WIDE_PER_MONT
+    squares = R_F * 3 * 2 + R_P * 2
+    if not want - 7 * squares <= wide(per) <= want + ADDRESSING or \
+            per.get("IMAD", 0) < SPARSE_MONT_PER_PERM * NARROW_PER_MONT:
+        raise AssertionError(
+            f"sparse core: SASS wide multiplies {wide(per)} and IMAD "
+            f"{per.get('IMAD', 0)} per permutation, against the source's "
+            f"{want} (less up to {7 * squares} shared in squares) and "
+            f"{SPARSE_MONT_PER_PERM * NARROW_PER_MONT}")
+    return per
+
+
+def _function_name(mangled: str) -> str:
+    """The last component of a mangled nested name (_ZN<len><name>...E)."""
+    i, name = mangled.find("_ZN") + 3, mangled
+    while 2 < i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        n = int(mangled[i:j])
+        name, i = mangled[j:j + n], j + n
+    return name
+
+
+def ptxas_report(log: str) -> dict:
+    """kernel -> (registers, spill store bytes, spill load bytes), from the
+    ptxas -v lines of one build."""
+    out, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn = _function_name(m.group(1))
+            out[fn] = [0, 0, 0]
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and fn:
+            out[fn][1:] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            out[fn][0] = int(m.group(1))
+    return {k: tuple(v) for k, v in out.items()}
+
+
+# kernels whose ptxas report must show no spills
+NO_SPILLS = ("hash2_kernel", "hash3_kernel")
+
+
 def phase_build(_build) -> None:
     t0 = time.perf_counter()
     _build.build()
@@ -225,9 +335,13 @@ def phase_build(_build) -> None:
     print(f"phase 2: kernel libraries built (in parallel) and loaded in "
           f"{time.perf_counter() - t0:.1f} s (nvcc s {secs})")
     for name, log in _build.build_log.items():
-        ptxas = [ln.strip() for ln in log.splitlines()
-                 if "registers" in ln or "spill" in ln]
-        print(f"phase 2: ptxas {name}: {' | '.join(ptxas)}")
+        report = ptxas_report(log)
+        print(f"phase 2: ptxas {name} (registers, spill store and load "
+              f"bytes): {report}")
+        for k in NO_SPILLS if name == "poseidon" else ():
+            if report.get(k, (0, 1, 1))[1:] != (0, 0):
+                raise AssertionError(f"{k} spills (or is not in the ptxas "
+                                     f"report): {report.get(k)}")
     cuobjdump = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
     sass = subprocess.run(
         [cuobjdump, "-sass", _build.library_path("poseidon")],
@@ -240,13 +354,29 @@ def phase_build(_build) -> None:
                              f"fewer than the source's "
                              f"{MONT_PER_PERM * NARROW_PER_MONT}")
     top = sorted(per.items(), key=lambda kv: -kv[1])[:12]
-    print(f"phase 2: SASS census per permutation: {sum(per.values())} "
-          f"instructions, {imad} of the IMAD family (IMAD.WIDE.U32 "
-          f"{per.get('IMAD.WIDE.U32', 0)} + IMAD.HI.U32 "
-          f"{per.get('IMAD.HI.U32', 0)} = {MONT_PER_PERM} x {WIDE_PER_MONT} "
-          f"wide multiply-adds, as the source counts; IMAD {narrow}: the "
-          f"source's {MONT_PER_PERM} x {NARROW_PER_MONT} 32-bit ones and "
-          f"address arithmetic); top: {top}")
+    print(f"phase 2: SASS census per permutation, dense core "
+          f"(permute_kernel): {sum(per.values())} instructions, {imad} of "
+          f"the IMAD family (IMAD.WIDE.U32 {per.get('IMAD.WIDE.U32', 0)} + "
+          f"IMAD.HI.U32 {per.get('IMAD.HI.U32', 0)} = {MONT_PER_PERM} x "
+          f"{WIDE_PER_MONT} wide multiply-adds, as the source counts; IMAD "
+          f"{narrow}: the source's {MONT_PER_PERM} x {NARROW_PER_MONT} "
+          f"32-bit ones and address arithmetic); top: {top}")
+    sp = sparse_census(sass)
+    top = sorted(sp.items(), key=lambda kv: -kv[1])[:12]
+    print(f"phase 2: SASS census per permutation, sparse core "
+          f"(hash2_kernel, two permutations halved): {sum(sp.values())} "
+          f"instructions = {sum(sp.values()) / sum(per.values()):.4f} of the "
+          f"dense core's, {sum(sp.values()) / SPARSE_MONT_PER_PERM:.1f} per "
+          f"product (IMAD.WIDE.U32 {sp.get('IMAD.WIDE.U32', 0)} + "
+          f"IMAD.HI.U32 {sp.get('IMAD.HI.U32', 0)}: the source's "
+          f"{SPARSE_MONT_PER_PERM} x {WIDE_PER_MONT} wide multiply-adds, "
+          f"less the products squares share, with the addressing; IMAD "
+          f"{sp.get('IMAD', 0)}: at least the source's "
+          f"{SPARSE_MONT_PER_PERM} x {NARROW_PER_MONT} 32-bit ones); top: "
+          f"{top}")
+    if sum(sp.values()) >= sum(per.values()):
+        raise AssertionError("the sparse core runs no fewer instructions per "
+                             "permutation than the dense core")
 
 
 # -- phase 3 / 3b: kernels vs plain ------------------------------------------
@@ -262,7 +392,7 @@ def phase_kernel_vs_plain(torch, pc, plain, field) -> dict:
         cols[:, i] = int_limbs(v)
     dev = torch.device("cuda")
     errs = {name: 0 for name in POSEIDON}
-    for width in (RAGGED, 2 * K, K, K // 2 + 1, 1):
+    for width in PHASE3_WIDTHS:
         L = [torch.as_tensor(np.roll(cols, s, axis=1)[:, :width], device=dev)
              for s in (0, 7, 101)]
         nodes = [plain.limbs_to_nodes(x) for x in L]   # valid nodes (< p)
@@ -288,9 +418,8 @@ def phase_kernel_vs_plain(torch, pc, plain, field) -> dict:
                 raise AssertionError(
                     f"{name} width {width}: kernel differs from plain")
     for name, err in errs.items():
-        print(f"phase 3: {name} widths {RAGGED}, {2 * K}, {K}, {K // 2 + 1}, "
-              f"1: kernel vs plain max_abs_err {err} (tolerance 0, "
-              "bit-exact)")
+        print(f"phase 3: {name} widths {', '.join(map(str, PHASE3_WIDTHS))}: "
+              f"kernel vs plain max_abs_err {err} (tolerance 0, bit-exact)")
 
     z = torch.zeros((16, 1), dtype=torch.int32, device=dev)
     h = field.limbs_to_int(pc.nodes_to_limbs(pc.hash3_leaf(z, z, z))[:, 0]
@@ -705,6 +834,26 @@ def phase_numbers(torch, pc, plain, vr, vc, indexed, field, card: str,
                   f"bound by the probe's cios16/imad16 ceilings {measured} "
                   f"ms, share {100 * measured / min(k1, k2):.1f}% [{card}]")
 
+    # the hash kernels' sparse core against the dense core, in turns (dense,
+    # hash2, hash2, dense): hash2 runs two sparse-core permutations per lane,
+    # permute_n(st, 2) two dense-core ones; at the sequential path's width,
+    # the batched path's widest and a width that fills the card
+    for width in (SEQ_WIDTH, TIMING_WIDTH, FILL_WIDTH):
+        nodes = [pc.limbs_to_nodes(x[:, :width].contiguous()) for x in L]
+        st = torch.stack(nodes)
+        hash2 = lambda: pc.hash2_nodes(nodes[0], nodes[1])
+        dense = lambda: pc.permute_n(st, 2)
+        reps = 10 if width == FILL_WIDTH else 20
+        d1 = vr.time_ms(dense, reps, 2)
+        h1 = vr.time_ms(hash2, reps, 2)
+        h2 = vr.time_ms(hash2, reps, 0)
+        d2 = vr.time_ms(dense, reps, 0)
+        bound, by = poseidon_bound_ms("hash2_nodes", width, imad_per_s)
+        print(f"phase 5: width {width}: hash2_nodes (sparse core) ms {h1} "
+              f"{h2}, permute_n(st, 2) (dense core) ms {d1} {d2}: hash2 / "
+              f"dense {min(h1, h2) / min(d1, d2):.4f}; hash2 bound {bound} "
+              f"ms ({by}), share {100 * bound / min(h1, h2):.2f}% [{card}]")
+
     for name in vr.BODIES:
         x = vr.seeded_input(name, *PROBE_SHAPE, seed=SEED)
         call = lambda f: f(name, x, PROBE_K)
@@ -770,9 +919,12 @@ def main() -> int:
           f"max SM clock {clock_mhz} MHz; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}")
     print(f"phase 1: least multiply-adds per permutation (bound): wide "
-          f"{PERM_WORK[0]}, 32-bit {PERM_WORK[1]}; the kernel's today: wide "
+          f"{PERM_WORK[0]}, 32-bit {PERM_WORK[1]}; the dense core's: wide "
           f"{MONT_PER_PERM * WIDE_PER_MONT}, 32-bit "
-          f"{MONT_PER_PERM * NARROW_PER_MONT}")
+          f"{MONT_PER_PERM * NARROW_PER_MONT}; the sparse core's: "
+          f"{SPARSE_MONT_PER_PERM} products, wide "
+          f"{SPARSE_MONT_PER_PERM * WIDE_PER_MONT}, 32-bit "
+          f"{SPARSE_MONT_PER_PERM * NARROW_PER_MONT}")
 
     phase_build(_build)
     errs = phase_kernel_vs_plain(torch, pc, plain, field)

@@ -32,7 +32,7 @@ _I32 = ctypes.c_int
 # library name -> (source under csrc/, C entry points and their arguments)
 LIBRARIES = {
     "poseidon": ("poseidon_bn254.cu", {
-        "imt_init_constants": [_P, _P, _P, _P],
+        "imt_init_constants": [_P, _I64],
         "imt_permute_n": [_P, _P, _I64, _I32, _P],
         "imt_hash2_nodes": [_P, _P, _P, _I64, _P],
         "imt_hash3_leaf": [_P, _P, _P, _P, _I64, _P],

@@ -16,21 +16,37 @@
 //
 // What bounds it: 32-bit integer multiply-add throughput, not memory.  A
 // hash reads 64-96 B and writes 32 B per lane, against two permutations of
-// 828 field multiplies each, and each multiply is 128 32x32->64-bit
-// multiply-adds (8x32-bit CIOS).  The design is the plain
-// one: one thread per lane, the whole state in registers for all 65 rounds,
-// the standard round structure of poseidon_ref.permute, CIOS Montgomery
-// multiplication after imt_tpu/native/imt_native.cpp, and the round
-// constants and MDS (Montgomery form) in __constant__ memory, where every
-// thread of a warp reads the same word.  Tuning it -- the optimized-spec
-// sparse partial rounds (imt_tpu/ops/poseidon_opt.py), PTX carry chains,
-// limb and register scheduling -- is later work.
+// some 600 field multiplies each, and each multiply is 128 32x32->64-bit
+// multiply-adds and 8 32-bit products (8x32-bit CIOS).  At the main path's
+// widths (2 to 8192 lanes) a launch does not fill the card, so its time is
+// one thread's dependent instruction chain.
+// One thread per lane, the whole state in registers, the constants
+// (Montgomery form) in __constant__ memory, where every thread of a warp
+// reads the same word.  Two permutation cores:
+//
+// - permute (the dense core, imt_permute_n): the standard round structure
+//   of poseidon_ref.permute, 828 products per permutation, with the CIOS
+//   product of imt_tpu/native/imt_native.cpp on 64-bit C++ accumulators.
+// - permute_sparse (the hash kernels): the optimized-spec schedule of
+//   ops/poseidon_opt.py::permute_opt -- 4 full rounds (the last with the
+//   folded MDS), 57 partial rounds of one S-box and a sparse matrix (3 + 5
+//   products), 4 full rounds: 600 products per permutation -- on a CIOS
+//   product (mont_mul_cc) whose rows are eight independent 64-bit
+//   multiply-adds (IMAD.WIDE.U32) and one PTX carry chain of adds.  Each
+//   chain (a row of the product, a row of the reduction, the final
+//   subtraction) is one asm statement: the carry flag does not survive
+//   from one asm statement to the next.
+//
+// Both cores compute the same permutation, so the hashes equal the plain
+// version bit for bit.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 // -Xcompiler -fPIC; a plain C interface, bound with ctypes (ops/_build.py).
 // Each launcher returns cudaGetLastError(); launches go on the caller's
 // stream, never synchronise, and allocate nothing.  The arithmetic and the
-// per-lane bodies are plain C++ (IMT_HD), so they also compile for the host.
+// per-lane bodies are plain C++ (IMT_HD), so they also compile for the host:
+// there the carry-chained functions take the C++ branch of the same
+// arithmetic, which a host build (g++) holds against ops/poseidon.py.
 
 #include <cstdint>
 #include <cstring>
@@ -58,11 +74,22 @@ struct Fr {
   u32 v[kWords];
 };
 
+constexpr int kHalf = kRF / 2;
+constexpr int kSparse = 5;   // m00, v1, v2, w1, w2
+
+// All tables in Montgomery form.  The host packs them word by word in this
+// order (poseidon_spec.kernel_words).
 struct Consts {
-  Fr rc[kRounds][kT];  // round constants, Montgomery form
-  Fr mds[kT][kT];      // MDS matrix, Montgomery form
-  Fr iv0;              // 2^64 mod p (sponge capacity word), Montgomery form
-  Fr one;              // 1 (squeeze pad word), Montgomery form
+  Fr rc[kRounds][kT];  // round constants
+  Fr mds[kT][kT];      // MDS matrix
+  Fr iv0;              // 2^64 mod p (sponge capacity word)
+  Fr one;              // 1 (squeeze pad word)
+  // the sparse schedule (poseidon_opt.optimize_params)
+  Fr pre[kHalf][kT];        // leading full rounds' constants
+  Fr mds_pre[kT][kT];       // MDS of the last leading full round, folded
+  Fr c0[kRP];               // partial rounds' word-0 constants
+  Fr sparse[kRP][kSparse];  // partial rounds' sparse matrices
+  Fr post[kHalf][kT];       // trailing full rounds' constants
 };
 
 // modulus p (BN254 scalar field), little-endian words; after unrolling,
@@ -143,13 +170,6 @@ IMT_HD void mont_mul(Fr& r, const Fr& a, const Fr& b) {
   reduce_once(r, t, t[kWords]);
 }
 
-IMT_HD void to_mont(Fr& r, const Fr& a) {
-  Fr r2;
-#pragma unroll
-  for (int i = 0; i < kWords; ++i) r2.v[i] = r2_word(i);
-  mont_mul(r, a, r2);
-}
-
 IMT_HD void from_mont(Fr& r, const Fr& a) {
   Fr one;
 #pragma unroll
@@ -193,6 +213,224 @@ IMT_HD void permute(Fr st[kT], const Consts& c) {
   }
 }
 
+// ---- carry-chained arithmetic ----------------------------------------------
+//
+// The same functions as add_mod / mont_mul / reduce_once, with every carry
+// in a PTX carry chain (add.cc / addc, sub.cc / subc).  The carry flag is
+// not kept from one asm statement to the next, so each chain is one
+// statement.  The host branch is the C++ arithmetic above.
+
+#ifdef __CUDA_ARCH__
+
+// r = t - p if t[8:0] >= p else t (t < 2p, t[8] its ninth word)
+__device__ __forceinline__ void reduce_once_cc(Fr& r,
+                                               const u32 t[kWords + 1]) {
+  u32 d[kWords], hi = t[kWords];
+#pragma unroll
+  for (int i = 0; i < kWords; ++i) d[i] = t[i];
+  asm("sub.cc.u32 %0, %0, %9;\n\t"
+      "subc.cc.u32 %1, %1, %10;\n\t"
+      "subc.cc.u32 %2, %2, %11;\n\t"
+      "subc.cc.u32 %3, %3, %12;\n\t"
+      "subc.cc.u32 %4, %4, %13;\n\t"
+      "subc.cc.u32 %5, %5, %14;\n\t"
+      "subc.cc.u32 %6, %6, %15;\n\t"
+      "subc.cc.u32 %7, %7, %16;\n\t"
+      "subc.u32 %8, %8, %17;"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(hi)
+      : "r"(mod_word(0)), "r"(mod_word(1)), "r"(mod_word(2)),
+        "r"(mod_word(3)), "r"(mod_word(4)), "r"(mod_word(5)),
+        "r"(mod_word(6)), "r"(mod_word(7)), "r"(0u));
+  // hi = t[8] - borrow: all ones exactly when t < p
+  const bool use_d = hi != 0xffffffffu;
+#pragma unroll
+  for (int i = 0; i < kWords; ++i) r.v[i] = use_d ? d[i] : t[i];
+}
+
+// One row of the CIOS product: t[0..9] = t[0..8] + ai * b.  The eight
+// 32x32-bit products, each with its word of t added, are 64-bit multiply-
+// adds (mad.wide.u32: one IMAD.WIDE.U32 each, no overflow, independent of
+// one another); one carry chain then adds each high half to the next low
+// half.  (mad.lo.cc / madc.hi.cc chains cost two instructions per half on
+// this card: IMAD has no carry-in-and-out form, so each becomes a multiply
+// and an IADD3.X.)
+__device__ __forceinline__ void mac_row(u32 t[kWords + 2], u32 ai,
+                                        const Fr& b) {
+  u64 p[kWords];
+#pragma unroll
+  for (int j = 0; j < kWords; ++j) p[j] = (u64)ai * b.v[j] + t[j];
+  asm("{\n\t.reg .u32 l<8>, h<8>;\n\t"
+      "mov.b64 {l0, h0}, %10;\n\t"
+      "mov.b64 {l1, h1}, %11;\n\t"
+      "mov.b64 {l2, h2}, %12;\n\t"
+      "mov.b64 {l3, h3}, %13;\n\t"
+      "mov.b64 {l4, h4}, %14;\n\t"
+      "mov.b64 {l5, h5}, %15;\n\t"
+      "mov.b64 {l6, h6}, %16;\n\t"
+      "mov.b64 {l7, h7}, %17;\n\t"
+      "mov.b32 %0, l0;\n\t"
+      "add.cc.u32 %1, l1, h0;\n\t"
+      "addc.cc.u32 %2, l2, h1;\n\t"
+      "addc.cc.u32 %3, l3, h2;\n\t"
+      "addc.cc.u32 %4, l4, h3;\n\t"
+      "addc.cc.u32 %5, l5, h4;\n\t"
+      "addc.cc.u32 %6, l6, h5;\n\t"
+      "addc.cc.u32 %7, l7, h6;\n\t"
+      "addc.cc.u32 %8, %18, h7;\n\t"
+      "addc.u32 %9, %19, %19;\n\t}"
+      : "=r"(t[0]), "=r"(t[1]), "=r"(t[2]), "=r"(t[3]), "=r"(t[4]),
+        "=r"(t[5]), "=r"(t[6]), "=r"(t[7]), "=r"(t[8]), "=r"(t[9])
+      : "l"(p[0]), "l"(p[1]), "l"(p[2]), "l"(p[3]), "l"(p[4]), "l"(p[5]),
+        "l"(p[6]), "l"(p[7]), "r"(t[8]), "r"(0u));
+}
+
+// One row of the reduction: m = t[0] * (-p^-1); t = (t + m * p) >> 32 (the
+// low word of t + m * p is 0).  The same shape as mac_row.
+__device__ __forceinline__ void redc_row(u32 t[kWords + 2]) {
+  const u32 m = t[0] * kInv;
+  u64 p[kWords];
+#pragma unroll
+  for (int j = 0; j < kWords; ++j) p[j] = (u64)m * mod_word(j) + t[j];
+  asm("{\n\t.reg .u32 l<8>, h<8>;\n\t"
+      "mov.b64 {l0, h0}, %9;\n\t"
+      "mov.b64 {l1, h1}, %10;\n\t"
+      "mov.b64 {l2, h2}, %11;\n\t"
+      "mov.b64 {l3, h3}, %12;\n\t"
+      "mov.b64 {l4, h4}, %13;\n\t"
+      "mov.b64 {l5, h5}, %14;\n\t"
+      "mov.b64 {l6, h6}, %15;\n\t"
+      "mov.b64 {l7, h7}, %16;\n\t"
+      "add.cc.u32 %0, l1, h0;\n\t"
+      "addc.cc.u32 %1, l2, h1;\n\t"
+      "addc.cc.u32 %2, l3, h2;\n\t"
+      "addc.cc.u32 %3, l4, h3;\n\t"
+      "addc.cc.u32 %4, l5, h4;\n\t"
+      "addc.cc.u32 %5, l6, h5;\n\t"
+      "addc.cc.u32 %6, l7, h6;\n\t"
+      "addc.cc.u32 %7, %17, h7;\n\t"
+      "addc.u32 %8, %18, %19;\n\t}"
+      : "=r"(t[0]), "=r"(t[1]), "=r"(t[2]), "=r"(t[3]), "=r"(t[4]),
+        "=r"(t[5]), "=r"(t[6]), "=r"(t[7]), "=r"(t[8])
+      : "l"(p[0]), "l"(p[1]), "l"(p[2]), "l"(p[3]), "l"(p[4]), "l"(p[5]),
+        "l"(p[6]), "l"(p[7]), "r"(t[8]), "r"(t[9]), "r"(0u));
+  t[kWords + 1] = 0;
+}
+
+#endif  // __CUDA_ARCH__
+
+IMT_HD void add_mod_cc(Fr& r, const Fr& a, const Fr& b) {
+#ifdef __CUDA_ARCH__
+  u32 s[kWords + 1];
+#pragma unroll
+  for (int i = 0; i < kWords; ++i) s[i] = a.v[i];
+  s[kWords] = 0;
+  asm("add.cc.u32 %0, %0, %9;\n\t"
+      "addc.cc.u32 %1, %1, %10;\n\t"
+      "addc.cc.u32 %2, %2, %11;\n\t"
+      "addc.cc.u32 %3, %3, %12;\n\t"
+      "addc.cc.u32 %4, %4, %13;\n\t"
+      "addc.cc.u32 %5, %5, %14;\n\t"
+      "addc.cc.u32 %6, %6, %15;\n\t"
+      "addc.cc.u32 %7, %7, %16;\n\t"
+      "addc.u32 %8, %8, %8;"
+      : "+r"(s[0]), "+r"(s[1]), "+r"(s[2]), "+r"(s[3]), "+r"(s[4]),
+        "+r"(s[5]), "+r"(s[6]), "+r"(s[7]), "+r"(s[8])
+      : "r"(b.v[0]), "r"(b.v[1]), "r"(b.v[2]), "r"(b.v[3]), "r"(b.v[4]),
+        "r"(b.v[5]), "r"(b.v[6]), "r"(b.v[7]));
+  reduce_once_cc(r, s);
+#else
+  add_mod(r, a, b);
+#endif
+}
+
+// r = a*b/R mod p, the CIOS product of mont_mul (same result, < p) with its
+// carries in PTX carry chains.  r may alias a or b.
+IMT_HD void mont_mul_cc(Fr& r, const Fr& a, const Fr& b) {
+#ifdef __CUDA_ARCH__
+  u32 t[kWords + 2];
+#pragma unroll
+  for (int j = 0; j < kWords + 2; ++j) t[j] = 0;
+#pragma unroll
+  for (int i = 0; i < kWords; ++i) {
+    mac_row(t, a.v[i], b);
+    redc_row(t);
+  }
+  reduce_once_cc(r, t);
+#else
+  mont_mul(r, a, b);
+#endif
+}
+
+IMT_HD void to_mont(Fr& r, const Fr& a) {
+  Fr r2;
+#pragma unroll
+  for (int i = 0; i < kWords; ++i) r2.v[i] = r2_word(i);
+  mont_mul_cc(r, a, r2);
+}
+
+IMT_HD void pow5_cc(Fr& x) {
+  Fr x2, x4;
+  mont_mul_cc(x2, x, x);
+  mont_mul_cc(x4, x2, x2);
+  mont_mul_cc(x, x4, x);
+}
+
+// ---- the sparse core (poseidon_opt.permute_opt) -----------------------------
+
+// add constants, S-box on every word, dense MDS: 18 products
+IMT_HD void full_round_sparse(Fr st[kT], const Fr rc[kT],
+                              const Fr mds[kT][kT]) {
+  Fr s[kT];
+#pragma unroll
+  for (int i = 0; i < kT; ++i) {
+    add_mod_cc(s[i], st[i], rc[i]);
+    pow5_cc(s[i]);
+  }
+#pragma unroll
+  for (int i = 0; i < kT; ++i) {
+    Fr acc, p;
+    mont_mul_cc(acc, mds[i][0], s[0]);
+#pragma unroll
+    for (int j = 1; j < kT; ++j) {
+      mont_mul_cc(p, mds[i][j], s[j]);
+      add_mod_cc(acc, acc, p);
+    }
+    st[i] = acc;
+  }
+}
+
+// One permutation: 4 full rounds (the last with the folded MDS), 57 partial
+// rounds (x0 += c0, s = x0^5, x0 = m00 s + v1 x1 + v2 x2, x1 += w1 s,
+// x2 += w2 s: 8 products), 4 full rounds.  600 products in all.  Every
+// matrix is a fixed constant-bank address (the last leading round runs
+// outside the loop), so its words are instruction operands: picking the
+// matrix per round made the compiler load them into registers, and spill.
+IMT_HD void permute_sparse(Fr st[kT], const Consts& c) {
+#pragma unroll 1
+  for (int r = 0; r < kHalf - 1; ++r) full_round_sparse(st, c.pre[r], c.mds);
+  full_round_sparse(st, c.pre[kHalf - 1], c.mds_pre);
+#pragma unroll 1
+  for (int r = 0; r < kRP; ++r) {
+    const Fr* m = c.sparse[r];
+    Fr s, x0, p;
+    add_mod_cc(s, st[0], c.c0[r]);
+    pow5_cc(s);
+    mont_mul_cc(x0, m[0], s);
+    mont_mul_cc(p, m[1], st[1]);
+    add_mod_cc(x0, x0, p);
+    mont_mul_cc(p, m[2], st[2]);
+    add_mod_cc(x0, x0, p);
+    mont_mul_cc(p, m[3], s);
+    add_mod_cc(st[1], st[1], p);
+    mont_mul_cc(p, m[4], s);
+    add_mod_cc(st[2], st[2], p);
+    st[0] = x0;
+  }
+#pragma unroll 1
+  for (int r = 0; r < kHalf; ++r) full_round_sparse(st, c.post[r], c.mds);
+}
+
 // ---- per-lane bodies (limb-major global layouts, B lanes) ------------------
 
 IMT_HD void load_node(Fr& x, const u32* src, long long B, long long lane) {
@@ -234,6 +472,7 @@ IMT_HD void permute_lane(const u32* in, u32* out, long long B, long long lane,
   for (int j = 0; j < kT; ++j) store_node(out + j * kWords * B, st[j], B, lane);
 }
 
+
 // 2-to-1 sponge: [iv0, a, b] -> permute -> word1 += 1 -> permute -> word1
 IMT_HD void hash2_lane(const u32* a, const u32* b, u32* out, long long B,
                        long long lane, const Consts& c) {
@@ -241,9 +480,9 @@ IMT_HD void hash2_lane(const u32* a, const u32* b, u32* out, long long B,
   st[0] = c.iv0;
   load_node(st[1], a, B, lane);
   load_node(st[2], b, B, lane);
-  permute(st, c);
-  add_mod(st[1], st[1], c.one);
-  permute(st, c);
+  permute_sparse(st, c);
+  add_mod_cc(st[1], st[1], c.one);
+  permute_sparse(st, c);
   store_node(out, st[1], B, lane);
 }
 
@@ -257,12 +496,12 @@ IMT_HD void hash3_lane(const u32* a, const u32* b, const u32* c_in, u32* out,
   to_mont(st[1], x);
   load_limbs(x, b, B, lane);
   to_mont(st[2], x);
-  permute(st, c);
+  permute_sparse(st, c);
   load_limbs(x, c_in, B, lane);
   to_mont(x, x);
-  add_mod(st[1], st[1], x);
-  add_mod(st[2], st[2], c.one);
-  permute(st, c);
+  add_mod_cc(st[1], st[1], x);
+  add_mod_cc(st[2], st[2], c.one);
+  permute_sparse(st, c);
   store_node(out, st[1], B, lane);
 }
 
@@ -282,12 +521,13 @@ IMT_HD void nodes_to_limbs_lane(const u32* in, u32* out, long long B,
   store_limbs(out, x, B, lane);
 }
 
-void pack_consts(Consts& h, const u32* rc, const u32* mds, const u32* iv0,
-                 const u32* one) {
-  std::memcpy(h.rc, rc, sizeof(h.rc));
-  std::memcpy(h.mds, mds, sizeof(h.mds));
-  std::memcpy(h.iv0.v, iv0, sizeof(h.iv0.v));
-  std::memcpy(h.one.v, one, sizeof(h.one.v));
+// The tables from their words in struct order; false if the count differs.
+bool pack_consts(Consts& h, const u32* words, long long n_words) {
+  if (n_words * (long long)sizeof(u32) != (long long)sizeof(Consts)) {
+    return false;
+  }
+  std::memcpy(&h, words, sizeof(Consts));
+  return true;
 }
 
 }  // namespace
@@ -348,13 +588,13 @@ unsigned grid_for(long long B) {
 
 extern "C" {
 
-// Copy the Montgomery constant tables (uint32 words: rc [65][3][8],
-// mds [3][3][8], iv0 [8], one [8]) into constant memory of the current
-// device.  Called once per process and device, before any launch.
-int imt_init_constants(const u32* rc, const u32* mds, const u32* iv0,
-                       const u32* one) {
+// Copy the Montgomery constant tables (the uint32 words of Consts, in its
+// field order) into constant memory of the current device.  Called once per
+// process and device, before any launch.  Returns -1 if n_words does not
+// match the struct.
+int imt_init_constants(const u32* words, long long n_words) {
   Consts h;
-  pack_consts(h, rc, mds, iv0, one);
+  if (!pack_consts(h, words, n_words)) return -1;
   return (int)cudaMemcpyToSymbol(g_consts, &h, sizeof(h));
 }
 

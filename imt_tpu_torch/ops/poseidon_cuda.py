@@ -17,7 +17,6 @@ from __future__ import annotations
 import ctypes
 import threading
 
-import numpy as np
 import torch
 
 from . import _build
@@ -42,13 +41,12 @@ def _lib_for(device: torch.device) -> ctypes.CDLL:
         else torch.cuda.current_device()
     with _init_lock:
         if idx not in _initialized_devices:
-            from .poseidon_spec import default_spec, to_words
-            s = default_spec()
-            tabs = [np.ascontiguousarray(to_words(t)) for t in
-                    (s.rc_mont, s.mds_mont, s.iv_mont[0], s.one_mont)]
+            from .poseidon_spec import kernel_words
+            words = kernel_words()
             with torch.cuda.device(idx):
                 err = lib.imt_init_constants(
-                    *[t.ctypes.data_as(ctypes.c_void_p) for t in tabs])
+                    words.ctypes.data_as(ctypes.c_void_p),
+                    ctypes.c_longlong(words.size))
             if err:
                 raise RuntimeError(
                     f"imt_init_constants: CUDA error {err} on cuda:{idx}")

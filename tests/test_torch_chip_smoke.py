@@ -111,6 +111,81 @@ def test_sass_census_counts_the_round_loop():
             "IMAD.WIDE.U32": 1441}), cond))
 
 
+def _fake_hash2_sass(full: dict, partial: dict, straight: dict) -> str:
+    """A hash2_kernel listing shaped like the built one: straight code, then
+    two permutations of a full-round loop, a full round, a partial-round
+    loop and a full-round loop."""
+    lines = ["\t\tFunction : _ZN4anon12hash2_kernelEPKjS1_Pjx"]
+    addr = [0]
+
+    def emit(op, args="RZ"):
+        lines.append(f"        /*{addr[0]:04x}*/                   {op} "
+                     f"{args} ;  /* 0x0 */")
+        addr[0] += 16
+
+    def block(body, loop):
+        top = addr[0]
+        for op, n in body.items():
+            for _ in range(n):
+                emit(op)
+        if loop:
+            emit("@P0 BRA", f"{top:#x}")
+
+    block(straight, False)
+    for _ in range(2):
+        for body, loop in ((full, True), (full, False), (partial, True),
+                           (full, True)):
+            block(body, loop)
+    emit("EXIT", "")
+    return "\n".join(lines) + "\n\t\tFunction : other\n"
+
+
+def test_sparse_census_counts_both_permutations():
+    smoke = _smoke_module()
+    full = {"IMAD.WIDE.U32": 18 * 128, "IMAD": 18 * 8, "IADD3.X": 30}
+    partial = {"IMAD.WIDE.U32": 8 * 128, "IMAD": 8 * 8, "IADD3.X": 11}
+    straight = {"LDG.E": 24, "IMAD.WIDE.U32": 2}
+    per = smoke.sparse_census(_fake_hash2_sass(full, partial, straight))
+    assert per["IMAD.WIDE.U32"] == 600 * 128 + 1
+    assert smoke.SPARSE_MONT_PER_PERM == 600 and per["IMAD"] == 600 * 8
+    assert per["IADD3.X"] == 8 * 30 + 57 * 11
+    assert per["LDG.E"] == 12 and per["BRA"] == 3 + 57 + 4
+    # squares may share row 0's symmetric products: 7 of 128 in 6 of a full
+    # round's 18 products and 2 of a partial round's 8
+    shared = smoke.sparse_census(_fake_hash2_sass(
+        dict(full, **{"IMAD.WIDE.U32": 18 * 128 - 6 * 7}),
+        dict(partial, **{"IMAD.WIDE.U32": 8 * 128 - 2 * 7}), {}))
+    assert shared["IMAD.WIDE.U32"] == 600 * 128 - (8 * 6 + 57 * 2) * 7
+    # the carry-chained rows as mad.lo.cc / madc.hi.cc: the high halves are
+    # IMAD.HI.U32, the low ones IMAD
+    hi_lo = lambda n: {"IMAD.HI.U32": n * 128, "IMAD": n * 136}
+    per = smoke.sparse_census(_fake_hash2_sass(hi_lo(18), hi_lo(8), {}))
+    assert per["IMAD.HI.U32"] == 600 * 128 and per["IMAD"] == 600 * 136
+    with pytest.raises(AssertionError, match="wide multiplies"):
+        smoke.sparse_census(_fake_hash2_sass(
+            full, dict(partial, **{"IMAD.WIDE.U32": 8 * 128 + 1}), {}))
+    with pytest.raises(AssertionError, match="6 disjoint loops"):
+        smoke.sparse_census(_fake_sass({"IMAD": 1}, {"IMAD": 1}).replace(
+            "permute_kernel", "hash2_kernel"))
+
+
+def test_ptxas_report_per_kernel():
+    mangled = ("_ZN50_GLOBAL__N__d154033d_17_poseidon_bn254_cu_d88bd4e1"
+               "{}EPKjS1_Pjx")
+    log = "\n".join([
+        "ptxas info    : 18592 bytes gmem",
+        "ptxas info    : Function properties for "
+        + mangled.format("12hash2_kernel"),
+        "    48 bytes stack frame, 48 bytes spill stores, 56 bytes spill loads",
+        "ptxas info    : Used 254 registers, used 0 barriers",
+        "ptxas info    : Function properties for "
+        + mangled.format("14permute_kernel"),
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 110 registers, used 0 barriers"])
+    assert _smoke_module().ptxas_report(log) == {
+        "hash2_kernel": (254, 48, 56), "permute_kernel": (110, 0, 0)}
+
+
 def test_bound_counts_the_least_work_schedule():
     from imt_tpu.ops import poseidon_opt, poseidon_ref
     smoke = _smoke_module()

@@ -38,7 +38,7 @@ def _limbs(seed: int, width: int, dev) -> torch.Tensor:
     return torch.as_tensor(x, device=dev)
 
 
-@pytest.mark.parametrize("width", [1, 129, 1000])
+@pytest.mark.parametrize("width", [1, 2, 129, 1000])
 def test_kernel_equals_plain(cuda, width):
     a, b, c = (_limbs(s, width, cuda) for s in (1, 2, 3))
     na, nb = poseidon.limbs_to_nodes(a), poseidon.limbs_to_nodes(b)
@@ -54,6 +54,24 @@ def test_kernel_equals_plain(cuda, width):
     torch.cuda.synchronize()
     for i, (got, want) in enumerate(pairs):
         assert torch.equal(got, want), i
+
+
+def test_constant_tables_on_the_card(cuda):
+    """The hash kernels read the sparse schedule's tables from constant
+    memory: hashes of known inputs equal the python-int oracle's."""
+    from imt_tpu_torch.ops.poseidon_ref import hash_fixed
+    from imt_tpu_torch.ops.poseidon_spec import default_params
+    pairs = [(0, 0), (1, 2), (FIELD_MODULUS - 1, 7), (2 ** 200, 3 ** 100)]
+    nodes = [torch.as_tensor(np.stack([field.int_to_node(p[k]) for p in pairs],
+                                      axis=1), device=cuda) for k in (0, 1)]
+    got = poseidon_cuda.nodes_to_limbs(poseidon_cuda.hash2_nodes(*nodes))
+    params = default_params()
+    assert field.limbs_to_ints(got.cpu().numpy()) == [
+        hash_fixed(list(p), params) for p in pairs]
+    z = torch.as_tensor(field.ints_to_limbs([5, 0]), device=cuda)
+    leaf = poseidon_cuda.nodes_to_limbs(poseidon_cuda.hash3_leaf(z, z, z))
+    assert field.limbs_to_ints(leaf.cpu().numpy()) == [
+        hash_fixed([5, 5, 5], params), hash_fixed([0, 0, 0], params)]
 
 
 def test_wrappers_refuse_bad_tensors(cuda):
