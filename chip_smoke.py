@@ -5,9 +5,9 @@
 
 Builds the CUDA kernels from ``imt_tpu_torch/ops/csrc`` (one nvcc per
 source, in parallel), holds every entry point bit for bit against its plain
-torch version on the card, drives the port's three paths and checks what
-comes out, then times the paths and the kernels.  Phases, in order; any
-failure raises and the exit code is not 0:
+torch version on the card, drives the port's paths and checks what comes
+out, then times the paths and the kernels.  Phases, in order; any failure
+raises and the exit code is not 0:
 
 1. device: CUDA present; the card's name, power limit and SM clock; the
    least multiply-adds per permutation that the bounds count, beside the
@@ -18,9 +18,9 @@ failure raises and the exit code is not 0:
    permutation by opcode, the multiply-adds counted in the built library
    against the source's count);
 3. Poseidon kernel vs plain, bit for bit, at a ragged width of 65537 lanes
-   with edge values and at the main path's own widths (down to the
-   sequential path's 2 and 1), and the H(0,0,0) and poseidonperm_x5_254_3
-   anchors;
+   with edge values and at the main path's own widths (config 5's hash3
+   over 2^17 leaves, down to the sequential path's 2 and 1), and the
+   H(0,0,0) and poseidonperm_x5_254_3 anchors;
 3b. every probe body (``csrc/vpu_roofline.cu``) vs plain, bit for bit, at
    [48, 65537] with k = 64 and k = 1, and at [48, 65536] with k = 4;
 4. the batched path: four depth-24 batches of 4096 values with planted
@@ -34,15 +34,29 @@ failure raises and the exit code is not 0:
    true on every ok lane and false once a sibling is flipped), MerkleTree of
    2^16 leaves (proofs verify, a corrupted one fails), and the depth-6
    golden path [30, 10, 20, 5, 50, 35] through insert against the oracle;
+6. the sparse tree and the witness batches.  Config 5's shape
+   (bench.py:453-484): a depth-32 SparseIndexedMerkleTree holding 2^21
+   slots takes 16 batches of K = 65536 with planted duplicates and zeros
+   through insert_batches in groups of 8 (ok against set semantics on numpy
+   rows; the root against a dense depth-24 twin fed the same batches and a
+   rebuild of the prefix, both folded over the zero spine with python ints;
+   the list walked in order).  Config 3w's shape: 8 witness batches of
+   K = 4096 into a depth-16 tree, then one into a depth-32 tree that grows
+   from 2^10 slots (every accepted lane passes insert_leaf, a flipped
+   sibling fails, the roots chain, the state equals a twin's through
+   insert_batch), and a K = 256 witness batch equal to insert_seq on its
+   accepted lanes;
 5. numbers: depth-24 inserts/s (batched and sequential), non-inclusion
-   witnesses/s, the probe's rates per body (its own path), and each
+   witnesses/s, phase 6's sparse chained inserts/s and witness-batch
+   inserts/s, the probe's rates per body (its own path), and each
    kernel's time beside its plain version's and its bound, the Poseidon
    entry points also at a width that fills the card, and hash2 (the sparse
    core) against permute_n(st, 2) (the dense core) at widths 2, 8192 and
    2^17.
 
-The line before the last is the kernels' JSON record (the paths' kernels,
-then the entry point no path runs); the last line is ``{"ok": true,
+Phase 6 runs before phase 5, which prints its numbers.  The line before the
+last is the kernels' JSON record (the paths' kernels, each with its launches
+per path, then the entry point no path runs); the last line is ``{"ok": true,
 "device": {...}}``.  Without CUDA it exits non-zero and prints no result.
 """
 
@@ -62,8 +76,6 @@ DEPTH, K, N_BATCHES = 24, 4096, 4
 RAGGED = 65537
 TIMING_WIDTH = 8192
 SEQ_WIDTH = 2                 # a sequential insert's hash2 launches
-# phase 3: ragged widths, the batched path's (2K, K), the sequential one's (2)
-PHASE3_WIDTHS = (RAGGED, 2 * K, K, K // 2 + 1, 129, SEQ_WIDTH, 1)
 FILL_WIDTH = 1 << 17          # 132 SMs x ~8 blocks of 128 lanes
 SEQ_VALUES = 64
 QUERIES = 4096
@@ -72,6 +84,17 @@ GOLDEN = [30, 10, 20, 5, 50, 35]
 PROBE_SHAPE = (48, 65536)
 PROBE_K = 64                  # k of the probe bodies' kernel-vs-plain times
 SEED = 20260601
+# phase 6: config 5's shape (bench.py:453-484: depth 32, K = 65536, 16
+# batches in groups of 8, 2^21 slots held as bench.py:405 sizes it), its
+# dense depth-24 twin, and config 3w's (depth 16, witness batches of 4096)
+C5_DEPTH, C5_CAPACITY, C5_K, C5_BATCHES, C5_GROUP = 32, 21, 65536, 16, 8
+C5_DENSE_DEPTH = 24
+W_DEPTH, W_K, W_BATCHES, W_SEQ = 16, 4096, 8, 256
+# phase 3: config 5's (hash3 over 2 * C5_K leaves, hash2 over the C5_K low
+# leaves), a ragged width, the batched and witness paths' (2K, K), the
+# sequential one's (2)
+PHASE3_WIDTHS = (2 * C5_K, RAGGED, C5_K, 2 * K, K, K // 2 + 1, 129,
+                 SEQ_WIDTH, 1)
 
 ANCHOR_H000 = 1960587138944869480785025106734196872454309951825657414575195034687326603497
 TV_PERM_012 = [
@@ -88,11 +111,13 @@ ROOFLINE_SOURCE = "imt_tpu_torch/ops/csrc/vpu_roofline.cu"
 # around the kernel.
 POSEIDON = {
     "hash3_leaf": ("imt_tpu/ops/poseidon_rns_pallas.py:1240",
-                   ("insert_batch", "sequential")),
+                   ("insert_batch", "sequential", "sparse_batches",
+                    "witness_batch")),
     "hash2_nodes": ("imt_tpu/ops/poseidon_rns_pallas.py:1240",
-                    ("insert_batch", "sequential")),
+                    ("insert_batch", "sequential", "sparse_batches",
+                     "witness_batch")),
     "nodes_to_limbs": ("imt_tpu/ops/field_rns.py:262",
-                       ("insert_batch", "sequential")),
+                       ("insert_batch", "sequential", "witness_batch")),
     "limbs_to_nodes": ("imt_tpu/ops/field_rns.py:249", ("sequential",)),
     "permute_n": ("imt_tpu/ops/poseidon_rns_pallas.py:1199", ()),
 }
@@ -382,12 +407,14 @@ def phase_build(_build) -> None:
 # -- phase 3 / 3b: kernels vs plain ------------------------------------------
 
 def phase_kernel_vs_plain(torch, pc, plain, field) -> dict:
-    """Every Poseidon entry point against its plain version on CUDA tensors:
-    at a ragged width (edge values in the first lanes), then at the main
-    path's own widths (hash3 over the 2K dirty leaves, hash2 over the K low
-    leaves and the first slab level, the root decode)."""
+    """Every Poseidon entry point against its plain version on CUDA tensors,
+    with edge values in the first lanes: at the main paths' own widths
+    (config 5's hash3 over its 2 * C5_K dirty leaves and hash2 over its
+    C5_K low leaves, the depth-24 path's hash3 over 2K and hash2 over the
+    K low leaves and the first slab level, the witness walk's 2K, the root
+    decode) and at a ragged width."""
     rng = np.random.default_rng(SEED)
-    cols = seeded_limbs(rng, RAGGED)
+    cols = seeded_limbs(rng, max(PHASE3_WIDTHS))
     for i, v in enumerate([0, 1, field.P - 1, field.P, (1 << 256) - 1]):
         cols[:, i] = int_limbs(v)
     dev = torch.device("cuda")
@@ -719,6 +746,298 @@ def phase_sequential(torch, pc, field, indexed, merkle, reference_oracle,
     return {"launches": launches}
 
 
+# -- phase 6: the sparse tree and the witness batches ------------------------
+
+def set_semantics(stream: np.ndarray) -> np.ndarray:
+    """bool[N]: sequential set semantics over the values [16, N] in stream
+    order, on numpy rows: a value is accepted iff it is nonzero and its
+    first occurrence."""
+    rows = np.ascontiguousarray(stream.T.astype(np.int32))
+    keys = rows.view(np.dtype((np.void, rows.shape[1] * 4))).ravel()
+    ok = np.zeros(rows.shape[0], dtype=bool)
+    ok[np.unique(keys, return_index=True)[1]] = True
+    return ok & rows.any(axis=1)
+
+
+def lex_order(cols: np.ndarray) -> np.ndarray:
+    """The columns of limbs [16, N] sorted by value (most significant limb
+    the primary key)."""
+    return np.lexsort(cols.astype(np.int64))
+
+
+def strictly_increasing(cols: np.ndarray) -> bool:
+    """Whether the values [16, N] (limb 0 least significant) strictly
+    increase from column to column."""
+    c = cols.astype(np.int64)
+    lt, eq = np.zeros(c.shape[1] - 1, bool), np.ones(c.shape[1] - 1, bool)
+    for limb in range(c.shape[0] - 1, -1, -1):
+        lt |= eq & (c[limb, :-1] < c[limb, 1:])
+        eq &= c[limb, :-1] == c[limb, 1:]
+    return bool(lt.all())
+
+
+def list_walk(vals: np.ndarray, nvs: np.ndarray, nis: np.ndarray):
+    """The linked list from slot 0: the slots it visits, in order.  Raises
+    unless each slot's next_val is the value of its next_idx and the values
+    strictly increase."""
+    nxt = (nis[0].astype(np.int64) | (nis[1].astype(np.int64) << 16)) \
+        .tolist()
+    more = nvs.any(axis=0).tolist()
+    order, slot = [], 0
+    while more[slot]:
+        slot = nxt[slot]
+        order.append(slot)
+        if len(order) > len(nxt):
+            raise AssertionError("the linked list has a cycle")
+    order = np.asarray(order, dtype=np.int64)
+    prev = np.concatenate([[0], order[:-1]]).astype(np.int64)
+    if not np.array_equal(nvs[:, prev], vals[:, order]):
+        raise AssertionError("a next_val differs from the value of its "
+                             "next_idx")
+    if order.size and not strictly_increasing(
+            np.concatenate([np.zeros((16, 1), vals.dtype), vals[:, order]],
+                           axis=1)):
+        raise AssertionError("the linked list is not in increasing order")
+    return order
+
+
+def zero_roots(depth: int) -> list:
+    """Python-int root of an all-empty subtree of each height 0..depth."""
+    from imt_tpu_torch.ops.poseidon_ref import hash_fixed
+    from imt_tpu_torch.ops.poseidon_spec import default_params
+    params = default_params()
+    z = [ANCHOR_H000]
+    for _ in range(depth):
+        z.append(hash_fixed([z[-1], z[-1]], params))
+    return z
+
+
+def fold_int(root: int, depth: int, full_depth: int) -> int:
+    """A depth-`depth` root folded, with python ints, over the zero
+    subtrees of the levels up to `full_depth`."""
+    from imt_tpu_torch.ops.poseidon_ref import hash_fixed
+    from imt_tpu_torch.ops.poseidon_spec import default_params
+    params, z = default_params(), zero_roots(full_depth)
+    for d in range(depth, full_depth):
+        root = hash_fixed([root, z[d]], params)
+    return root
+
+
+def check_root_chain(field, w, before: int, after: int) -> None:
+    """A witness batch's roots chain: lane 0 starts from the root before
+    the batch, each lane from the one before it, and the last lane ends at
+    the root after."""
+    old = field.limbs_to_ints(w.old_root.cpu().numpy())
+    new = field.limbs_to_ints(w.new_root.cpu().numpy())
+    if old[0] != before or old[1:] != new[:-1] or new[-1] != after:
+        raise AssertionError("the witness batch's roots do not chain")
+
+
+def root_int(field, indexed, tree, prefix_root) -> int:
+    """`tree`'s full-depth root, as get_root_int gives it, from the root
+    node of its active prefix."""
+    return field.limbs_to_int(indexed.hashing.dec_nodes(indexed._spine_fold(
+        prefix_root, tree.active_depth, tree.tree_depth))[:, 0].cpu())
+
+
+def check_insert_leaf(indexed, w) -> None:
+    """Every accepted lane passes insert_leaf in one batched call, and none
+    does once a low-leaf proof sibling is flipped."""
+    args = [w.old_root, w.low_leaf_val, w.low_leaf_next_val,
+            w.low_leaf_next_idx, w.low_leaf_proof, w.low_leaf_proof_helper,
+            w.new_root, w.new_leaf_val, w.new_leaf_next_val,
+            w.new_leaf_next_idx, w.new_leaf_index, w.new_leaf_proof,
+            w.new_leaf_proof_helper, w.is_new_leaf_largest]
+    honest = indexed.insert_leaf(*args).cpu().numpy()
+    args[4] = w.low_leaf_proof.clone()
+    args[4][args[4].shape[0] // 2, 0] ^= 1
+    flipped = indexed.insert_leaf(*args).cpu().numpy()
+    if not honest[w.ok].all() or flipped[w.ok].any():
+        raise AssertionError("insert_leaf: an accepted witness fails or a "
+                             "flipped sibling passes")
+
+
+def same_state(a, b) -> bool:
+    import torch
+    return all(torch.equal(x, y) for x, y in zip(
+        [a.vals, a.next_vals, a.next_idxs] + a.levels,
+        [b.vals, b.next_vals, b.next_idxs] + b.levels))
+
+
+def phase_sparse(torch, pc, field, indexed, sparse, dev) -> dict:
+    """Config 5's shape: a depth-32 sparse tree with 2^21 slots held, 16
+    batches of K = 65536 through insert_batches in groups of 8."""
+    rng = np.random.default_rng(SEED + 6)
+    batches, prev = [], None
+    for _ in range(C5_BATCHES):
+        b = plant(rng, field.random_limbs(int(rng.integers(1 << 31)), C5_K,
+                                          253), prev)
+        batches.append(b)
+        prev = b
+    groups = [np.stack(batches[i:i + C5_GROUP])
+              for i in range(0, C5_BATCHES, C5_GROUP)]
+    tree = sparse.SparseIndexedMerkleTree(
+        C5_DEPTH, initial_capacity_log2=C5_CAPACITY, device=dev)
+    groups = [torch.as_tensor(g, device=dev) for g in groups]
+    torch.cuda.synchronize()
+    pc.reset_launch_counts()
+    oks, group_s = [], []
+    for g in groups:
+        t0 = time.perf_counter()
+        oks.append(tree.insert_batches(g))
+        torch.cuda.synchronize()
+        group_s.append(time.perf_counter() - t0)
+    launches = dict(pc.LAUNCHES)
+    print(f"phase 6: depth {C5_DEPTH}, 2^{C5_CAPACITY} slots held, "
+          f"{C5_BATCHES} batches of K={C5_K} in groups of {C5_GROUP} "
+          f"(insert_batches): launches {launches}")
+    check_launched("sparse_batches", launches)
+    if tree.active_depth != C5_CAPACITY:
+        raise AssertionError("the config-5 tree grew inside the run")
+
+    stream = np.concatenate(batches, axis=1)
+    want = set_semantics(stream)
+    got = np.concatenate([o.reshape(-1) for o in oks])
+    if not np.array_equal(got, want):
+        raise AssertionError("config 5: ok masks differ from set semantics")
+    print(f"phase 6: ok masks equal set semantics ({int(want.sum())} "
+          f"accepted of {stream.shape[1]})")
+
+    root = tree.get_root_int()
+    dense = indexed.IndexedMerkleTree(C5_DENSE_DEPTH, device=dev)
+    dense_ok = np.stack([dense.insert_batch(b) for b in batches])
+    if not np.array_equal(dense_ok.reshape(-1), got):
+        raise AssertionError("config 5: the dense twin's ok masks differ")
+    via_dense = fold_int(dense.get_root_int(), C5_DENSE_DEPTH, C5_DEPTH)
+    del dense
+    leaves = indexed.hashing.hash3_leaf(tree.vals, tree.next_vals,
+                                        tree.next_idxs)
+    prefix = indexed._build_levels(leaves, tree.active_depth)[-1]
+    via_rebuild = fold_int(field.limbs_to_int(
+        indexed.hashing.dec_nodes(prefix)[:, 0].cpu()), tree.active_depth,
+        C5_DEPTH)
+    del leaves, prefix
+    if not root == via_dense == via_rebuild:
+        raise AssertionError("config 5: the sparse root differs from the "
+                             "dense twin's or the rebuilt prefix's, folded "
+                             "over the zero spine")
+    print(f"phase 6: the depth-{C5_DEPTH} root equals the dense "
+          f"depth-{C5_DENSE_DEPTH} twin's root and a rebuild of the "
+          f"2^{C5_CAPACITY}-slot prefix, each folded over the zero spine "
+          f"with python ints ({root:#x})")
+
+    used = tree.count + 1
+    vals, nvs, nis = (x[:, :used].cpu().numpy()
+                      for x in (tree.vals, tree.next_vals, tree.next_idxs))
+    order = list_walk(vals, nvs, nis)
+    accepted = stream[:, want]
+    if not np.array_equal(vals[:, order],
+                          accepted[:, lex_order(accepted)]):
+        raise AssertionError("config 5: the list is not the accepted values")
+    print(f"phase 6: list walk from slot 0 visits the {order.size} accepted "
+          "values in strictly increasing order")
+    del tree
+    torch.cuda.empty_cache()
+    return {"launches": launches, "group_s": group_s}
+
+
+def phase_witness(torch, pc, field, indexed, sparse, dev) -> dict:
+    """Config 3w's shape: witness batches of K = 4096 into a depth-16
+    sparse tree (2^16 slots held, as bench.py sizes it), then one into a
+    depth-32 tree grown from the default 2^10 slots; checked against
+    insert_leaf, the root chain, a twin through insert_batch, and a
+    K = 256 witness batch against insert_seq."""
+    rng = np.random.default_rng(SEED + 7)
+    batches, prev = [], None
+    for _ in range(W_BATCHES + 1):
+        b = plant(rng, field.random_limbs(int(rng.integers(1 << 31)), W_K,
+                                          253), prev)
+        batches.append(torch.as_tensor(b, device=dev))
+        prev = b
+    tree = sparse.SparseIndexedMerkleTree(
+        W_DEPTH, initial_capacity_log2=W_DEPTH, device=dev)
+    deep = sparse.SparseIndexedMerkleTree(32, device=dev)
+    roots = [tree.get_root_int()]
+    deep_root0 = deep.get_root_int()
+    torch.cuda.synchronize()
+    # the roots after each batch are kept as the prefix's root nodes (a
+    # copy, no kernel) and decoded once the counts are read
+    pc.reset_launch_counts()
+    ws, batch_s, prefix_roots = [], [], []
+    for b in batches[:W_BATCHES]:
+        t0 = time.perf_counter()
+        ws.append(tree.insert_batch(b, witness=True))
+        torch.cuda.synchronize()
+        batch_s.append(time.perf_counter() - t0)
+        prefix_roots.append(tree.levels[-1].clone())
+    t0 = time.perf_counter()
+    wd = deep.insert_batch(batches[W_BATCHES], witness=True)
+    torch.cuda.synchronize()
+    deep_s = time.perf_counter() - t0
+    launches = dict(pc.LAUNCHES)
+    roots += [root_int(field, indexed, tree, r) for r in prefix_roots]
+    print(f"phase 6: depth {W_DEPTH}, {W_BATCHES} witness batches of K={W_K}, "
+          f"then one at depth 32: launches {launches}")
+    check_launched("witness_batch", launches)
+    if deep.active_depth != (W_K + 1).bit_length():
+        raise AssertionError("the depth-32 tree did not grow to fit")
+
+    seen: set = set()
+    twin = sparse.SparseIndexedMerkleTree(
+        W_DEPTH, initial_capacity_log2=W_DEPTH, device=dev)
+    for i, (b, w) in enumerate(zip(batches, ws)):
+        if w.ok.tolist() != host_accept(seen, field.limbs_to_ints(
+                b.cpu().numpy())):
+            raise AssertionError(f"witness batch {i}: ok differs from set "
+                                 "semantics")
+        if not np.array_equal(twin.insert_batch(b), w.ok):
+            raise AssertionError(f"witness batch {i}: the twin's ok differs")
+        check_insert_leaf(indexed, w)
+        check_root_chain(field, w, roots[i], roots[i + 1])
+    if not same_state(tree, twin):
+        raise AssertionError("the witness batches' state differs from the "
+                             "twin's through insert_batch")
+    if wd.ok.tolist() != host_accept(set(), field.limbs_to_ints(
+            batches[W_BATCHES].cpu().numpy())):
+        raise AssertionError("depth-32 witness batch: ok differs from set "
+                             "semantics")
+    check_insert_leaf(indexed, wd)
+    check_root_chain(field, wd, deep_root0, deep.get_root_int())
+    if wd.low_leaf_proof.shape[0] != deep.tree_depth or not wd.ok.any():
+        raise AssertionError("the depth-32 witness batch is not full depth")
+    print(f"phase 6: every accepted lane of the {W_BATCHES + 1} witness "
+          "batches passes insert_leaf in one call per batch (none once a "
+          "sibling is flipped), the roots chain from the root before each "
+          "batch to get_root() after it, ok equals set semantics, and the "
+          "state equals a twin's through insert_batch(witness=False)")
+
+    # K = 256 against insert_seq, on the depth-32 tree's state
+    seq_twin = sparse.SparseIndexedMerkleTree.from_arrays(deep.to_arrays(),
+                                                          device=dev)
+    present = field.limbs_to_ints(batches[W_BATCHES][:, :8].cpu().numpy())
+    vals = field.limbs_to_ints(field.random_limbs(
+        int(rng.integers(1 << 31)), W_SEQ, 253))
+    vals[8:16] = vals[:8]                        # duplicates within
+    vals[16:20] = [0] * 4                        # zeros
+    vals[24:32] = present                        # present values
+    wb = deep.insert_batch(vals, witness=True)
+    wseq = seq_twin.insert_seq(vals)
+    if wb.ok.tolist() != wseq.ok.tolist():
+        raise AssertionError("K=256: ok differs from insert_seq's")
+    acc = torch.as_tensor(wb.ok, device=dev)
+    for name in list(indexed.InsertWitness.__dataclass_fields__)[1:]:
+        a, b = getattr(wb, name), getattr(wseq, name)
+        if a.shape != b.shape or not torch.equal(a[..., acc], b[..., acc]):
+            raise AssertionError(f"K=256: {name} differs from insert_seq's "
+                                 "on an accepted lane")
+    if not same_state(deep, seq_twin):
+        raise AssertionError("K=256: the state differs from insert_seq's")
+    print(f"phase 6: a K={W_SEQ} witness batch at depth 32 equals insert_seq "
+          f"field by field on its {int(wb.ok.sum())} accepted lanes, and the "
+          "states agree")
+    return {"launches": launches, "batch_s": batch_s, "deep_s": deep_s}
+
+
 # -- phase 5: numbers ---------------------------------------------------------
 
 def poseidon_bound_ms(name: str, width: int, imad_per_s: float):
@@ -740,13 +1059,26 @@ def roofline_bound_ms(vr, name: str, n: int, k: int, imad_per_s: float):
 
 
 def phase_numbers(torch, pc, plain, vr, vc, indexed, field, card: str,
-                  clock_mhz: float, slice_out: dict) -> dict:
+                  clock_mhz: float, slice_out: dict, sparse_out: dict,
+                  witness_out: dict) -> dict:
     bs = slice_out["batch_s"]
     steady = bs[1:]
     print(f"phase 5: depth {DEPTH} insert_batch K={K} wall s per batch "
           f"{bs} (first includes warm-up); "
           f"{K * len(steady) / sum(steady)} inserts/s over batches 2-"
           f"{len(bs)} [{card}]")
+    gs = sparse_out["group_s"]
+    print(f"phase 5: depth {C5_DEPTH} sparse (2^{C5_CAPACITY} slots held) "
+          f"insert_batches of {C5_GROUP} batches of K={C5_K}: wall s per "
+          f"group {gs} (first includes warm-up); "
+          f"{C5_GROUP * C5_K / gs[-1]} inserts/s over group 2 [{card}]")
+    ws, deep_s = witness_out["batch_s"], witness_out["deep_s"]
+    print(f"phase 5: depth {W_DEPTH} insert_batch(witness=True) K={W_K}: wall "
+          f"s per batch {ws} (first includes warm-up); "
+          f"{W_K * (len(ws) - 1) / sum(ws[1:])} witness inserts/s over "
+          f"batches 2-{len(ws)}; depth 32, one batch that grows the tree "
+          f"from 2^10 slots: {deep_s} s = {W_K / deep_s} witness inserts/s "
+          f"[{card}]")
     rng = np.random.default_rng(SEED + 2)
     dev = torch.device("cuda")
     tree = slice_out["tree"]
@@ -911,7 +1243,7 @@ def main() -> int:
     from imt_tpu_torch.ops import poseidon_cuda as pc
     from imt_tpu_torch.ops import vpu_roofline as vr
     from imt_tpu_torch.ops import vpu_roofline_cuda as vc
-    from imt_tpu_torch.tree import indexed, merkle, reference_oracle
+    from imt_tpu_torch.tree import indexed, merkle, reference_oracle, sparse
 
     card = vr.nvidia_smi("name,power.limit")
     clock_mhz = float(vr.nvidia_smi("clocks.max.sm").split()[0])
@@ -933,10 +1265,17 @@ def main() -> int:
     seq_out = phase_sequential(torch, pc, field, indexed, merkle,
                                reference_oracle, slice_out,
                                torch.device("cuda"))
+    dev = torch.device("cuda")
+    t6 = time.perf_counter()
+    sparse_out = phase_sparse(torch, pc, field, indexed, sparse, dev)
+    witness_out = phase_witness(torch, pc, field, indexed, sparse, dev)
+    print(f"phase 6: done in {time.perf_counter() - t6:.1f} s")
     numbers = phase_numbers(torch, pc, plain, vr, vc, indexed, field, card,
-                            clock_mhz, slice_out)
+                            clock_mhz, slice_out, sparse_out, witness_out)
     launches = {"insert_batch": slice_out["launches"],
                 "sequential": seq_out["launches"],
+                "sparse_batches": sparse_out["launches"],
+                "witness_batch": witness_out["launches"],
                 "probe": numbers["probe_launches"]}
 
     print(card)

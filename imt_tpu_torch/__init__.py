@@ -15,9 +15,10 @@ from .tree.indexed import (ZERO_LEAF_HASH, IndexedMerkleTree, InsertWitness,
                            NonInclusionWitness, insert_leaf,
                            verify_non_inclusion)
 from .tree.merkle import MerkleTree
+from .tree.sparse import SparseIndexedMerkleTree
 
 __version__ = "0.2.0"
 
 __all__ = ["FIELD_MODULUS", "ZERO_LEAF_HASH", "IndexedMerkleTree",
            "InsertWitness", "NonInclusionWitness", "MerkleTree",
-           "insert_leaf", "verify_non_inclusion"]
+           "SparseIndexedMerkleTree", "insert_leaf", "verify_non_inclusion"]

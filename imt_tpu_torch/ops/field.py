@@ -171,24 +171,35 @@ def _reduce(x: torch.Tensor, bound: int = 2) -> torch.Tensor:
     return x
 
 
+@lru_cache(maxsize=None)
+def _columns(device: str) -> torch.Tensor:
+    """int64[256]: the column i + j of limb product a_i * b_j."""
+    return torch.tensor([i + j for i in range(LIMBS) for j in range(LIMBS)],
+                        device=device)
+
+
 def _cios(a: torch.Tensor, b: torch.Tensor, dot: bool) -> torch.Tensor:
-    """CIOS Montgomery reduction, radix 2^16, lazy int64 accumulators: the
-    product a*b (or, with `dot`, the sum of the products over the last
-    axis) times R^{-1} mod p, fully reduced."""
+    """Montgomery product, radix 2^16, lazy int64 accumulators: the product
+    a*b (or, with `dot`, the sum of the products over the last axis) times
+    R^{-1} mod p, fully reduced.  The 256 limb products are summed into
+    their columns at once (each column < 16 * 3 * 2^32), then the CIOS
+    reduction runs limb by limb."""
     a, b = torch.broadcast_tensors(a, b)
     shape = tuple(a.shape[1:-1] if dot else a.shape[1:])
+    prod = a.unsqueeze(1) * b.unsqueeze(0)          # [16, 16, ...]
+    if dot:
+        prod = prod.sum(-1)
     t = torch.zeros((2 * LIMBS + 1,) + shape, dtype=torch.int64,
                     device=a.device)
+    t.index_add_(0, _columns(str(a.device)),
+                 prod.reshape((LIMBS * LIMBS,) + shape))
     p = _col(P, t)
     for i in range(LIMBS):
-        if dot:
-            t[i:i + LIMBS] += (a[i] * b).sum(-1)
-        else:
-            t[i:i + LIMBS].addcmul_(a[i], b)
-        m = (t[i] * N0_INV) & MASK          # t[i] < 2^40: no overflow
+        ti = t[i]
+        m = (ti * N0_INV) & MASK            # t[i] < 2^40: no overflow
         t[i:i + LIMBS].addcmul_(m, p)
         # t[i] is now divisible by 2^16: carry it into the next limb
-        t[i + 1] += t[i] >> LIMB_BITS
+        t[i + 1] += ti >> LIMB_BITS
     # (sum of products + m*p) / R, in limbs 16..32: < (terms + 1) * p
     return _reduce(t[LIMBS:], (a.shape[-1] if dot else 1) + 1)
 

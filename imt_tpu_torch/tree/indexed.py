@@ -5,7 +5,10 @@ Counterpart of ``imt_tpu.tree.indexed`` for the dense tree: leaf semantics
 
 * ``insert_batch`` resolves a whole batch with one lexicographic sort, one
   3-to-1 rehash of the 2K dirty leaves and a level-by-level dirty-path
-  update (``_plan_batch`` then ``_update_paths_batch``).
+  update (``_plan_batch`` then ``_update_paths_batch``); ``insert_batches``
+  chains B of them and rebuilds the levels above the crossover once.
+  ``insert_batch(witness=True)`` also returns every insert's
+  ``InsertWitness`` (``batch_witness.py``).
 * ``insert`` / ``insert_seq`` are the sequential witness path: one step per
   value (``_insert_step``, ``imt_tpu``'s ``_insert_step_fn``) returning the
   ``InsertWitness`` bundle the reference's insert_leaf chip consumes.
@@ -19,8 +22,13 @@ the caller asks for ``device="cpu"``.
 
 State: canonical limbs ``int32[16, N]`` for ``vals`` / ``next_vals`` /
 ``next_idxs``, and the Merkle levels as nodes ``int32[8, N >> d]``
-(Montgomery form, fully reduced), leaves first.  Unlike ``imt_tpu``, whose
-arrays are immutable, the inserts update the state and the levels IN PLACE:
+(Montgomery form, fully reduced), leaves first.  The levels may cover an
+active prefix of 2^ad slots of a tree of full depth ``tree_depth``
+(``sparse.py``): everything to its right is empty, so roots are folded
+over the zero-subtree spine and proofs extended with it (``_spine_fold``,
+``_extend_proof``); the dense tree is the case ad = ``tree_depth``.
+Unlike ``imt_tpu``, whose arrays are immutable, the inserts update the
+state and the levels IN PLACE:
 at depth 24 a functional update would copy ~4 GB per batch (and ~1 GB per
 sequential insert).  An insert that raises part-way (a failed launch)
 therefore leaves the tree inconsistent.
@@ -138,6 +146,16 @@ _KEY_GROUPS = ((15, 14, 13), (12, 11, 10), (9, 8, 7), (6, 5, 4), (3, 2, 1),
                (0,))
 
 
+def _checked_limbs(values, device) -> torch.Tensor:
+    """Packed limbs (numpy or torch, any integer dtype) -> int32 on
+    `device`, after checking that every limb lies in [0, 2^16)."""
+    x = torch.as_tensor(np.asarray(values).astype(np.int64)) \
+        if isinstance(values, np.ndarray) else values.to(torch.int64)
+    if bool(((x < 0) | (x > field.MASK)).any()):
+        raise ValueError("limbs must lie in [0, 2^16)")
+    return x.to(device=device, dtype=torch.int32).contiguous()
+
+
 def _as_limb_batch(values, device) -> tuple[torch.Tensor, int]:
     """List of python ints OR packed limbs [16, K] (numpy or torch) ->
     (int32[16, K] on `device`, K)."""
@@ -145,14 +163,24 @@ def _as_limb_batch(values, device) -> tuple[torch.Tensor, int]:
         if values.shape[0] != field.LIMBS:
             raise ValueError(
                 f"expected [16, K] limb array, got {tuple(values.shape)}")
-        x = torch.as_tensor(np.asarray(values).astype(np.int64)) \
-            if isinstance(values, np.ndarray) else values.to(torch.int64)
-        if bool(((x < 0) | (x > field.MASK)).any()):
-            raise ValueError("limbs must lie in [0, 2^16)")
-        return x.to(device=device, dtype=torch.int32).contiguous(), \
-            values.shape[1]
+        return _checked_limbs(values, device), values.shape[1]
     return (torch.as_tensor(field.ints_to_limbs([int(v) for v in values]),
                             device=device), len(values))
+
+
+def _as_batch_stack(values, device) -> torch.Tensor:
+    """B equal-length lists of python ints OR packed limbs [B, 16, K]
+    (numpy or torch) -> int32[B, 16, K] on `device` (``imt_tpu`` :183)."""
+    if isinstance(values, (np.ndarray, torch.Tensor)):
+        if values.ndim != 3 or values.shape[1] != field.LIMBS:
+            raise ValueError(
+                f"expected [B, 16, K] limb array, got {tuple(values.shape)}")
+        return _checked_limbs(values, device)
+    if len({len(v) for v in values}) != 1:
+        raise ValueError("all batches must have equal length")
+    return torch.as_tensor(np.stack(
+        [field.ints_to_limbs([int(x) for x in v]) for v in values]),
+        device=device)
 
 
 def index_to_limbs(idx: torch.Tensor) -> torch.Tensor:
@@ -243,6 +271,17 @@ def _crossover(depth: int, d_width: int) -> int:
     return depth
 
 
+def _batches_hash_count(depth: int, k: int, b: int) -> int:
+    """Fixed-length hashes one insert_batches call of b batches performs:
+    b batches below the crossover, one rebuild above it."""
+    cross = _crossover(depth, k)
+    per_batch, slab = 2 * k, k
+    for _ in range(cross):
+        slab = slab // 2 + 1
+        per_batch += k + slab
+    return b * per_batch + (((1 << depth) >> cross) - 1)
+
+
 def _halves(level: torch.Tensor):
     return level[:, 0::2].contiguous(), level[:, 1::2].contiguous()
 
@@ -282,20 +321,44 @@ def _update_paths_batch(levels: list, low_idx: torch.Tensor,
         levels[d + 1] = hashing.hash2_nodes(*_halves(levels[d]))
 
 
-def _plan_batch(vals, nvs, nis, new_vals, count: int, n: int, k: int):
-    """The batched-insert planner (``imt_tpu`` ``_plan_batch``): sort every
-    existing slot and new value by (value, slot), accept each entry that
-    differs from its predecessor, link successors, rewrite pointers IN PLACE
-    in vals / nvs / nis, and rehash the 2K dirty leaves.
+def _next_true(mask: torch.Tensor) -> torch.Tensor:
+    """int64[M]: the position of the first true entry of `mask` bool[M]
+    strictly after each position, M where there is none: ``lax.cummin(...,
+    reverse=True)`` as a flip around ``torch.cummin``, shifted by one."""
+    m = mask.shape[0]
+    nxt = torch.where(mask, torch.arange(m, device=mask.device), m) \
+        .flip(0).cummin(0).values.flip(0)
+    return torch.cat([nxt[1:], nxt.new_full((1,), m)])
 
-    Returns (low_idx int64[K], low_hash [8, K], slab_start, slab_hash [8, K],
-    ok bool[K])."""
+
+def _prev_true(mask: torch.Tensor, none: int) -> torch.Tensor:
+    """int64[M]: the position of the last true entry of `mask` bool[M]
+    strictly before each position, `none` where there is none."""
+    prv = torch.where(mask, torch.arange(mask.shape[0], device=mask.device),
+                      -1).cummax(0).values
+    return torch.cat([prv.new_full((1,), none), prv[:-1]])
+
+
+def _entry_vals(vals, new_vals, entry: torch.Tensor, n: int):
+    """Values [16, K] of sort entries `entry` int64[K]: entries below n are
+    the slots of `vals`, the rest the new values."""
+    return torch.where(entry < n, vals[:, entry.clamp(max=n - 1)],
+                       new_vals[:, (entry - n).clamp(min=0)])
+
+
+def _sort_batch(vals, new_vals, slab_start: int, n: int, k: int):
+    """The final-list sort of the batched planners (``imt_tpu`` :766-797,
+    and :251-273 of its batch_witness): every existing slot and new value
+    sorted by (value, slot), each entry accepted unless it equals its sorted
+    predecessor.  Entries 0..n-1 are the slots of `vals`, n..n+K-1 the new
+    values, which take the slots from `slab_start` on.
+
+    Returns (order, entry_slot, accepted, pos_new): the sort permutation
+    of the entries, each entry's slot, acceptance by sorted position, and
+    each new value's sorted position (all int64 / bool, M = n + K)."""
     m = n + k
     dev = vals.device
-    slab_start = count + 1
-    slots = slab_start + torch.arange(k, device=dev)
     ar_m = torch.arange(m, device=dev)
-
     # Sort by (value, slot): six 48-bit value keys (three 16-bit limbs
     # each, most significant first) and the slot, as LSD passes.  Slots of
     # existing entries precede new slots, and new slots follow batch order:
@@ -314,27 +377,34 @@ def _plan_batch(vals, nvs, nis, new_vals, count: int, n: int, k: int):
     del value_keys
     accepted = torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
                           ~eq_prev])
+    inv_order = torch.empty_like(order)
+    inv_order[order] = ar_m
+    return order, entry_slot, accepted, inv_order[n:]
 
-    # successor / predecessor positions among accepted entries
-    nxt = torch.where(accepted, ar_m, m).flip(0).cummin(0).values.flip(0)
-    nxt = torch.cat([nxt[1:], torch.full((1,), m, device=dev)])   # strict >
-    prv = torch.where(accepted, ar_m, -1).cummax(0).values
-    prv = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev), prv[:-1]])
+
+def _link_batch(vals, nvs, nis, new_vals, sort, slab_start: int, n: int,
+                k: int):
+    """The final list after the batch: each accepted new value linked
+    between its sorted neighbours among the accepted entries, written IN
+    PLACE in vals / nvs / nis.  `sort` is ``_sort_batch``'s result.
+
+    Returns (prev_slot int64[K]: each new value's final low leaf,
+    ok bool[K])."""
+    order, entry_slot, accepted, pos_new = sort
+    m = n + k
+    slots = slab_start + torch.arange(k, device=vals.device)
+    # successor / predecessor positions among accepted entries (position 0,
+    # the slot-0 sentinel, is always accepted)
+    nxt, prv = _next_true(accepted), _prev_true(accepted, 0)
 
     # Everything below is K-sized: only the new entries and their low
     # leaves change.
-    inv_order = torch.empty_like(order)
-    inv_order[order] = ar_m
-    pos_new = inv_order[n:]
     ok = accepted[pos_new]
-
     nxt_new = nxt[pos_new]
     linked = (nxt_new < m) & ok
     succ_entry = order[nxt_new.clamp(0, m - 1)]
-    succ_val = torch.where(
-        succ_entry < n, vals[:, succ_entry.clamp(max=n - 1)],
-        new_vals[:, (succ_entry - n).clamp(min=0)])
-    succ_val = torch.where(linked, succ_val, 0)
+    succ_val = torch.where(linked, _entry_vals(vals, new_vals, succ_entry, n),
+                           0)
     succ_slot = torch.where(linked, entry_slot[succ_entry], 0)
     prev_slot = entry_slot[order[prv[pos_new].clamp(0, m - 1)]]
 
@@ -351,10 +421,23 @@ def _plan_batch(vals, nvs, nis, new_vals, count: int, n: int, k: int):
     nvs[:, new_cols] = succ_val
     nis[:, low_tgt] = index_to_limbs(slots[acc])
     nis[:, new_cols] = index_to_limbs(succ_slot)
+    return prev_slot, ok
 
+
+def _plan_batch(vals, nvs, nis, new_vals, count: int, n: int, k: int):
+    """The batched-insert planner (``imt_tpu`` ``_plan_batch``): sort every
+    existing slot and new value by (value, slot), accept each entry that
+    differs from its predecessor, link successors, rewrite pointers IN PLACE
+    in vals / nvs / nis, and rehash the 2K dirty leaves.
+
+    Returns (low_idx int64[K], low_hash [8, K], slab_start, slab_hash [8, K],
+    ok bool[K])."""
+    slab_start = count + 1
+    low_idx, ok = _link_batch(
+        vals, nvs, nis, new_vals,
+        _sort_batch(vals, new_vals, slab_start, n, k), slab_start, n, k)
     # dirty leaves: the K low leaves (rejected lanes rehash an unchanged
     # leaf) and the contiguous new-slot slab, in ONE width-2K hash3
-    low_idx = prev_slot
     hashes = hashing.hash3_leaf(*[
         torch.cat([x[:, low_idx], _dynamic_slice(x, slab_start, k)], dim=1)
         for x in (vals, nvs, nis)])
@@ -392,6 +475,52 @@ def _build_levels(leaves: torch.Tensor, depth: int) -> list:
     for _ in range(depth):
         levels.append(hashing.hash2_nodes(*_halves(levels[-1])))
     return levels
+
+
+# ---------------------------------------------------------------------------
+# Zero-subtree spine (``imt_tpu`` :358-414).  A tree of full depth F whose
+# occupied slots all lie in its leftmost 2^d leaves is held as that active
+# prefix: every ancestor above the prefix root is H(node, zero subtree of
+# its level), and every proof sibling above it is that zero-subtree hash
+# (helper 1: the path hugs the left spine).
+# ---------------------------------------------------------------------------
+
+@lru_cache(maxsize=None)
+def _zero_sib_nodes(depth: int, full_depth: int,
+                    device: torch.device) -> torch.Tensor:
+    """Zero-subtree hash of each level d in [depth, full_depth) as nodes
+    [full_depth - depth, 8, 1] on `device` (shared: read only)."""
+    roots = _zero_level_roots(full_depth)
+    nodes = np.zeros((full_depth - depth, field.WORDS), dtype=np.int32)
+    for i, d in enumerate(range(depth, full_depth)):
+        nodes[i] = field.int_to_node(roots[d])
+    return torch.as_tensor(nodes, device=device)[:, :, None]
+
+
+def _spine_fold(root: torch.Tensor, depth: int,
+                full_depth: int) -> torch.Tensor:
+    """Active-prefix roots, nodes [8, K] (a series of roots or one) ->
+    full-depth roots [8, K]: one hash2 launch per level above the prefix,
+    with the zero-subtree hash of the level, made contiguous, as the right
+    child."""
+    root = root.contiguous()
+    for sib in _zero_sib_nodes(depth, full_depth, root.device):
+        root = hashing.hash2_nodes(root, sib.expand_as(root).contiguous())
+    return root
+
+
+def _extend_proof(proof: torch.Tensor, helpers: torch.Tensor, depth: int,
+                  full_depth: int):
+    """Active-depth sibling paths, nodes [depth, 8, K] and helpers
+    [depth, K] -> full-depth ones: the zero-subtree hashes above, helper
+    1."""
+    ext, k = full_depth - depth, proof.shape[-1]
+    if not ext:
+        return proof, helpers
+    sibs = _zero_sib_nodes(depth, full_depth, proof.device)
+    return (torch.cat([proof, sibs.expand(ext, field.WORDS, k)]),
+            torch.cat([helpers, torch.ones((ext, k), dtype=helpers.dtype,
+                                           device=helpers.device)]))
 
 
 # ---------------------------------------------------------------------------
@@ -462,7 +591,8 @@ def _insert_step(tree: "IndexedMerkleTree", new_val: torch.Tensor) -> dict:
     """One sequential insert into `tree`, in place (``imt_tpu``
     ``_insert_step_fn``, :472-556).  new_val: canonical limbs [16, 1] on the
     tree's device.  Returns the witness fields, one lane, with the roots and
-    proofs still as nodes (insert_seq decodes them all at once).
+    proofs still as nodes of the active prefix (insert_seq folds, extends
+    and decodes them all at once, ``_finish_witness``).
 
     ``imt_tpu`` computes the whole post-insert state and selects it with
     jnp.where(ok, ...) over every level -- at depth 24 a ~1 GB copy per
@@ -472,7 +602,7 @@ def _insert_step(tree: "IndexedMerkleTree", new_val: torch.Tensor) -> dict:
     columns, so nothing waits for the host).  A rejected lane still gets
     the hypothetical new root, proofs and pointers that ``imt_tpu``
     computes."""
-    depth, dev = tree.tree_depth, tree.device
+    depth, dev = tree.active_depth, tree.device
     vals, nvs, nis, levels = (tree.vals, tree.next_vals, tree.next_idxs,
                               tree.levels)
     live = tree._live
@@ -520,38 +650,50 @@ def _insert_step(tree: "IndexedMerkleTree", new_val: torch.Tensor) -> dict:
     return w
 
 
-def _stack_witness(steps: list) -> InsertWitness:
+def _finish_witness(w: dict, depth: int, full_depth: int) -> InsertWitness:
+    """Witness fields with the roots and proofs as nodes of a depth-`depth`
+    active prefix -> the InsertWitness of the full-depth tree: the old and
+    new roots folded over the zero spine in one series, the proofs
+    extended, then all of them decoded in one launch; ``ok`` to numpy."""
+    k = w["old_root"].shape[1]
+    roots = _spine_fold(torch.cat([w["old_root"], w["new_root"]], dim=1),
+                        depth, full_depth)
+    low, w["low_leaf_proof_helper"] = _extend_proof(
+        w["low_leaf_proof"], w["low_leaf_proof_helper"], depth, full_depth)
+    new, w["new_leaf_proof_helper"] = _extend_proof(
+        w["new_leaf_proof"], w["new_leaf_proof_helper"], depth, full_depth)
+    # roots as two one-level paths, then both proofs: [2 + 2F, 8, K]
+    dec = _dec_path(torch.cat([roots[:, :k][None], roots[:, k:][None], low,
+                               new]))
+    w["old_root"], w["new_root"] = dec[0], dec[1]
+    w["low_leaf_proof"] = dec[2:2 + full_depth]
+    w["new_leaf_proof"] = dec[2 + full_depth:]
+    w["ok"] = w["ok"].cpu().numpy()
+    return InsertWitness(**w)
+
+
+def _stack_witness(steps: list, depth: int, full_depth: int) -> InsertWitness:
     """Per-insert witness fields (one lane each) -> one InsertWitness in the
-    batch layout ([16, C] / [depth, 16, C], ``imt_tpu`` :583-599), with all
-    roots and proofs decoded in one launch."""
-    cat = {key: torch.cat([w[key] for w in steps], dim=-1)
-           for key in steps[0]}
-    depth = cat["low_leaf_proof"].shape[0]
-    # roots as one-level paths, then both proofs: [2 + 2*depth, 8, C]
-    path = torch.cat([cat["old_root"][None], cat["new_root"][None],
-                      cat["low_leaf_proof"], cat["new_leaf_proof"]])
-    dec = _dec_path(path)
-    cat["old_root"], cat["new_root"] = dec[0], dec[1]
-    cat["low_leaf_proof"] = dec[2:2 + depth]
-    cat["new_leaf_proof"] = dec[2 + depth:]
-    cat["ok"] = cat["ok"].cpu().numpy()
-    return InsertWitness(**cat)
+    batch layout ([16, C] / [full_depth, 16, C], ``imt_tpu`` :583-599)."""
+    return _finish_witness({key: torch.cat([w[key] for w in steps], dim=-1)
+                            for key in steps[0]}, depth, full_depth)
 
 
 # ---------------------------------------------------------------------------
 # Batched non-inclusion witness
 # ---------------------------------------------------------------------------
 
-def _non_inclusion(vals, nvs, nis, levels, queries, depth: int) -> dict:
+def _non_inclusion(vals, nvs, nis, levels, queries, full_depth: int) -> dict:
     """Low leaf, proof and ok of each query [16, K] (``imt_tpu``
     ``_non_inclusion_witness_fn``, :674-750) over the slots of `vals` [16, M]
-    (a prefix holding every list participant).  One stable sort of slots
-    and queries by (value, is_query, entry): an existing entry equal to a
-    query sorts before it, so that query's low leaf fails val < q (ok False,
-    the value is present).  ``imt_tpu`` sorts with a 9-key lax.sort; here
-    the value is six 48-bit keys and is_query rides in the low bit of the
-    least significant one, as LSD stable passes (_lex_order), which gives
-    the same order."""
+    (a prefix holding every list participant), with the root and proofs of
+    the depth-`full_depth` tree whose active prefix `levels` hold.  One
+    stable sort of slots and queries by (value, is_query, entry): an
+    existing entry equal to a query sorts before it, so that query's low
+    leaf fails val < q (ok False, the value is present).  ``imt_tpu``
+    sorts with a 9-key lax.sort; here the value is six 48-bit keys and
+    is_query rides in the low bit of the least significant one, as LSD
+    stable passes (_lex_order), which gives the same order."""
     dev = vals.device
     n, k = vals.shape[1], queries.shape[1]
     m = n + k
@@ -577,8 +719,11 @@ def _non_inclusion(vals, nvs, nis, levels, queries, depth: int) -> dict:
         nis[:, low_idx]
     ok = found & field.less_than(low_val, queries) & (
         field.less_than(queries, low_nv) | field.is_zero(low_nv))
-    proof, helpers = _gather_proof(levels, low_idx, depth)
-    root = hashing.dec_nodes(levels[-1]).expand(field.LIMBS, k).contiguous()
+    depth = len(levels) - 1
+    proof, helpers = _extend_proof(*_gather_proof(levels, low_idx, depth),
+                                   depth, full_depth)
+    root = hashing.dec_nodes(_spine_fold(levels[-1], depth, full_depth)) \
+        .expand(field.LIMBS, k).contiguous()
     return dict(ok=ok.cpu().numpy(), root=root, low_leaf_val=low_val,
                 low_leaf_next_val=low_nv, low_leaf_next_idx=low_ni,
                 low_leaf_proof=_dec_path(proof),
@@ -669,15 +814,13 @@ class IndexedMerkleTree:
     ``_live`` bounds the slots that can hold a nonzero value (every slot
     from it on is an empty, non-participant slot), so the sequential low-leaf
     search and the non-inclusion sort look at ``[0, _live)`` only; it is
-    exact, since such slots can never be a low leaf."""
+    exact, since such slots can never be a low leaf.  ``levels`` cover the
+    active prefix of ``active_depth`` levels (all of them here;
+    ``SparseIndexedMerkleTree`` holds fewer)."""
 
     def __init__(self, depth: int, device="cuda"):
         self._setup(depth, device)
-        n = self.num_slots
-        z = lambda: torch.zeros((field.LIMBS, n), dtype=torch.int32,
-                                device=self.device)
-        self.vals, self.next_vals, self.next_idxs = z(), z(), z()
-        self.levels = _zero_levels(depth, self.device)
+        self._alloc(depth)
 
     def _setup(self, depth: int, device) -> None:
         if depth < 1:
@@ -687,6 +830,21 @@ class IndexedMerkleTree:
         self.count = 0  # inserts performed (slot cursor)
         self._live = 1
         self.device = torch.device(device)
+
+    def _alloc(self, active_depth: int) -> None:
+        z = lambda: torch.zeros((field.LIMBS, 1 << active_depth),
+                                dtype=torch.int32, device=self.device)
+        self.vals, self.next_vals, self.next_idxs = z(), z(), z()
+        self.levels = _zero_levels(active_depth, self.device)
+
+    @property
+    def active_depth(self) -> int:
+        return len(self.levels) - 1
+
+    def _reserve(self, c: int) -> None:
+        """Room for c more inserts (slots count+1 .. count+c), or raise."""
+        if self.count + c >= self.num_slots:
+            raise ValueError("tree full")
 
     def _advance(self, k: int) -> None:
         """k more slots consumed; every write so far is at a slot <=
@@ -698,7 +856,8 @@ class IndexedMerkleTree:
 
     def get_root(self) -> torch.Tensor:
         """Root as canonical limbs int32[16, 1]."""
-        return hashing.dec_nodes(self.levels[-1])
+        return hashing.dec_nodes(_spine_fold(
+            self.levels[-1], self.active_depth, self.tree_depth))
 
     def get_root_int(self) -> int:
         return field.limbs_to_int(self.get_root()[:, 0].cpu())
@@ -706,10 +865,12 @@ class IndexedMerkleTree:
     def get_proof(self, index: int):
         """Sibling path as canonical limbs int32[depth, 16, 1] and helper
         bits int32[depth, 1] (helper = 1 iff the path node is a left
-        child)."""
+        child), over the full depth."""
         idx = torch.full((1,), int(index), dtype=torch.int64,
                          device=self.device)
-        proof, helpers = _gather_proof(self.levels, idx, self.tree_depth)
+        ad = self.active_depth
+        proof, helpers = _extend_proof(*_gather_proof(self.levels, idx, ad),
+                                       ad, self.tree_depth)
         return _dec_path(proof), helpers
 
     def verify_proof(self, leaf, index: int, root, proof) -> bool:
@@ -753,41 +914,80 @@ class IndexedMerkleTree:
         ([16, C] / [depth, 16, C]); the loop itself never waits for the
         device."""
         new_vals, c = _as_limb_batch(values, self.device)
-        if self.count + c >= self.num_slots:
-            raise ValueError("tree full")
+        self._reserve(c)
         steps = []
         for i in range(c):
             steps.append(_insert_step(self, new_vals[:, i:i + 1]))
             self._advance(1)
-        w = _stack_witness(steps)
+        w = _stack_witness(steps, self.active_depth, self.tree_depth)
         GLOBAL_METRICS.record_hashes(c * (2 + 2 * self.tree_depth))
         GLOBAL_METRICS.record_inserts(int(w.ok.sum()), c - int(w.ok.sum()))
         if _debug_witness:
             check_insert_witness(w)
         return w
 
-    def insert_batch(self, values, witness: bool = False) -> np.ndarray:
+    def insert_batch(self, values, witness: bool = False):
         """Batched insert with sequential semantics, sort-resolved, in place.
         `values` is a list of python ints or packed canonical limbs [16, K]
-        (numpy or torch).  Returns the per-value acceptance mask bool[K]."""
-        if witness:
-            raise NotImplementedError(
-                "insert_batch(witness=True) is not ported yet (ROADMAP.md "
-                "Queue 1: witness batches)")
+        (numpy or torch).  Returns the per-value acceptance mask bool[K];
+        with witness=True, the InsertWitness of every insert instead
+        (``batch_witness.py``), equal on its accepted lanes to what
+        ``insert_seq`` of the same values returns."""
         new_vals, k = _as_limb_batch(values, self.device)
-        if self.count + k >= self.num_slots:
-            raise ValueError("tree full")
-        depth = self.tree_depth
+        self._reserve(k)
+        ad = self.active_depth
+        if witness:
+            from .batch_witness import insert_batch_witness
+            fields = insert_batch_witness(
+                self.vals, self.next_vals, self.next_idxs, self.levels,
+                new_vals, self.count)
+            self._advance(k)
+            GLOBAL_METRICS.record_hashes(2 * k * (1 + ad))
+            w = _finish_witness(fields, ad, self.tree_depth)
+            GLOBAL_METRICS.record_inserts(int(w.ok.sum()), k - int(w.ok.sum()))
+            if _debug_witness:
+                check_insert_witness(w)
+            return w
         low_idx, low_hash, slab_start, slab_hash, ok = _plan_batch(
             self.vals, self.next_vals, self.next_idxs, new_vals, self.count,
-            self.num_slots, k)
+            self.vals.shape[1], k)
         _update_paths_batch(self.levels, low_idx, low_hash, slab_start,
-                            slab_hash, depth, _crossover(depth, k))
+                            slab_hash, ad, _crossover(ad, k))
         self._advance(k)
-        GLOBAL_METRICS.record_hashes(_batch_hash_count(depth, k))
+        GLOBAL_METRICS.record_hashes(_batch_hash_count(ad, k))
         ok = ok.cpu().numpy()
         GLOBAL_METRICS.record_inserts(int(ok.sum()), k - int(ok.sum()))
         return ok
+
+    def insert_batches(self, values) -> np.ndarray:
+        """B chained batches (``imt_tpu`` :1187, :613): packed limbs
+        [B, 16, K] or B equal-length lists of python ints, state-identical
+        to B ``insert_batch`` calls.  Each batch updates the levels up to
+        the crossover (``_crossover``), from where ``_update_paths_batch``
+        rebuilds every level from the one below alone; those levels are
+        rebuilt once, after the last batch.  Returns the acceptance masks
+        bool[B, K]."""
+        arr = _as_batch_stack(values, self.device)
+        b, _, k = arr.shape
+        self._reserve(b * k)
+        ad, n = self.active_depth, self.vals.shape[1]
+        cross = _crossover(ad, k)
+        oks = []
+        for new_vals in arr:
+            low_idx, low_hash, slab_start, slab_hash, ok = _plan_batch(
+                self.vals, self.next_vals, self.next_idxs, new_vals,
+                self.count, n, k)
+            _update_paths_batch(self.levels, low_idx, low_hash, slab_start,
+                                slab_hash, cross, cross)
+            self._advance(k)
+            oks.append(ok)
+        for d in range(cross, ad):
+            self.levels[d + 1] = hashing.hash2_nodes(*_halves(self.levels[d]))
+        GLOBAL_METRICS.record_hashes(_batches_hash_count(ad, k, b))
+        oks = torch.stack(oks).cpu().numpy() if oks else \
+            np.zeros((0, k), dtype=bool)
+        GLOBAL_METRICS.record_inserts(int(oks.sum()), b * k - int(oks.sum()))
+        return oks
 
     # -- serialization -------------------------------------------------------
 
@@ -808,16 +1008,24 @@ class IndexedMerkleTree:
         `device`."""
         tree = cls.__new__(cls)
         tree._setup(int(arrays["depth"]), device)
-        tree.count = int(arrays["count"])
+        tree._load(arrays, tree.tree_depth)
+        return tree
+
+    def _load(self, arrays: dict, active_depth: int) -> None:
+        """State from ``to_arrays`` output whose arrays hold 2^active_depth
+        slots; the levels rebuilt from it."""
         vals = np.asarray(arrays["vals"])
+        if vals.shape != (field.LIMBS, 1 << active_depth):
+            raise ValueError(f"vals of shape {vals.shape} do not hold "
+                             f"2^{active_depth} slots")
+        self.count = int(arrays["count"])
         nonzero = np.flatnonzero(vals.any(axis=0))
-        tree._live = int(nonzero[-1]) + 1 if nonzero.size else 1
+        self._live = int(nonzero[-1]) + 1 if nonzero.size else 1
         dev = lambda a: torch.as_tensor(
             np.ascontiguousarray(a, dtype=np.int64).astype(np.int32),
-            device=tree.device)
-        tree.vals = dev(vals)
-        tree.next_vals = dev(arrays["next_vals"])
-        tree.next_idxs = dev(arrays["next_idxs"])
-        leaves = hashing.hash3_leaf(tree.vals, tree.next_vals, tree.next_idxs)
-        tree.levels = _build_levels(leaves, tree.tree_depth)
-        return tree
+            device=self.device)
+        self.vals = dev(vals)
+        self.next_vals = dev(arrays["next_vals"])
+        self.next_idxs = dev(arrays["next_idxs"])
+        leaves = hashing.hash3_leaf(self.vals, self.next_vals, self.next_idxs)
+        self.levels = _build_levels(leaves, active_depth)

@@ -1,6 +1,7 @@
 """chip_smoke.py without a card (CPU): its depth-6 oracle replay and golden
-path on CPU tensors, its kernel record and SASS census, and its refusal to
-run without CUDA or outside a checkout."""
+path on CPU tensors, phase 6's host-side checkers on small inputs, its
+kernel record and SASS census, and its refusal to run without CUDA or
+outside a checkout."""
 
 import os
 import shutil
@@ -12,6 +13,7 @@ import torch
 
 from imt_tpu_torch.ops import field, vpu_roofline
 from imt_tpu_torch.tree import indexed, reference_oracle
+from imt_tpu_torch.tree.sparse import SparseIndexedMerkleTree
 
 torch.set_num_threads(1)
 
@@ -43,7 +45,8 @@ def test_kernel_record_names_the_replaced_code():
     bodies = list(vpu_roofline.BODIES)
     names = list(smoke.POSEIDON) + bodies
     launches = {p: dict.fromkeys(names, 1)
-                for p in ("insert_batch", "sequential", "probe")}
+                for p in ("insert_batch", "sequential", "sparse_batches",
+                          "witness_batch", "probe")}
     numbers = {"times": dict.fromkeys(names, (1.0, 2.0)),
                "bounds": dict.fromkeys(names, (0.5, "operations")),
                "probe_launches": dict.fromkeys(bodies, 1)}
@@ -62,7 +65,10 @@ def test_kernel_record_names_the_replaced_code():
         with open(os.path.join(ROOT, path)) as f:
             assert f.readlines()[int(line) - 1].lstrip().startswith("def "), e
     launched = {e["name"]: e["launches"] for e in rec["kernels"]}
-    assert launched["hash3_leaf"] == 2 and launched["limbs_to_nodes"] == 1
+    assert launched["hash3_leaf"] == 4 and launched["limbs_to_nodes"] == 1
+    assert launched["nodes_to_limbs"] == 3
+    assert set(rec["kernels"][0]["paths"]) == {
+        "insert_batch", "sequential", "sparse_batches", "witness_batch"}
     assert all(launched[b] == 1 for b in bodies)
 
 
@@ -206,6 +212,66 @@ def test_bound_counts_the_least_work_schedule():
         poseidon_ref.permute(state, params)
     assert sum(smoke.PERM_WORK) * 1.7 < smoke.MONT_PER_PERM * (
         smoke.WIDE_PER_MONT + smoke.NARROW_PER_MONT)
+
+
+def test_phase6_set_semantics_and_list_walk():
+    """The numpy checkers of phase 6: first occurrences of nonzero values
+    are accepted; the list walk follows next_idx from slot 0 and refuses a
+    list out of order, a wrong next_val or a cycle."""
+    import numpy as np
+    smoke = _smoke_module()
+    big = (1 << 200) + 5
+    stream = field.ints_to_limbs([5, 7, 5, 0, big, 7, 3, big + 1])
+    assert smoke.set_semantics(stream).tolist() == [
+        True, True, False, False, True, False, True, True]
+    # slots: 0 sentinel, 1 = 7, 2 = 3, 3 = 5, 4 = 0 (empty)
+    vals = field.ints_to_limbs([0, 7, 3, 5, 0])
+    nvs = field.ints_to_limbs([3, 0, 5, 7, 0])
+    nis = field.ints_to_limbs([2, 0, 3, 1, 0])
+    assert smoke.list_walk(vals, nvs, nis).tolist() == [2, 3, 1]
+    accepted = field.ints_to_limbs([7, 5, 3])
+    assert np.array_equal(vals[:, [2, 3, 1]],
+                          accepted[:, smoke.lex_order(accepted)])
+    assert smoke.strictly_increasing(field.ints_to_limbs([0, 1, big]))
+    assert not smoke.strictly_increasing(field.ints_to_limbs([1, big, big]))
+    bad_nv = nvs.copy()
+    bad_nv[:, 2] = field.int_to_limbs(6)
+    bad_order = vals.copy()
+    bad_order[:, [2, 3]] = bad_order[:, [3, 2]]
+    cycle = nis.copy()
+    cycle[:, 1] = field.int_to_limbs(2)
+    for args, msg in (((vals, bad_nv, nis), "next_val"),
+                      ((bad_order, field.ints_to_limbs([5, 0, 3, 7, 0]),
+                        nis), "increasing"),
+                      ((vals, field.ints_to_limbs([3, 3, 5, 7, 0]), cycle),
+                       "cycle")):
+        with pytest.raises(AssertionError, match=msg):
+            smoke.list_walk(*args)
+
+
+def test_phase6_spine_fold_and_root_chain():
+    """fold_int folds a prefix root over the python-int zero roots, as the
+    tree's own spine does; root_int decodes a kept prefix root as
+    get_root_int does; check_root_chain accepts a chained series and
+    refuses a broken one."""
+    from types import SimpleNamespace
+    smoke = _smoke_module()
+    z = indexed._zero_level_roots(6)
+    assert smoke.zero_roots(6) == list(z)
+    assert smoke.fold_int(z[2], 2, 6) == z[6]
+    assert smoke.fold_int(123, 4, 4) == 123
+    t = SparseIndexedMerkleTree(3, initial_capacity_log2=1, device="cpu")
+    assert t.active_depth == 1
+    assert smoke.root_int(field, indexed, t, t.levels[-1].clone()) == z[3]
+    w = SimpleNamespace(old_root=torch.as_tensor(field.ints_to_limbs(
+        [1, 2, 3])), new_root=torch.as_tensor(field.ints_to_limbs([2, 3, 4])))
+    smoke.check_root_chain(field, w, 1, 4)
+    for before, after in ((0, 4), (1, 3)):
+        with pytest.raises(AssertionError, match="chain"):
+            smoke.check_root_chain(field, w, before, after)
+    w.new_root = torch.as_tensor(field.ints_to_limbs([2, 9, 4]))
+    with pytest.raises(AssertionError, match="chain"):
+        smoke.check_root_chain(field, w, 1, 4)
 
 
 def test_golden_path_matches_oracle_on_cpu():

@@ -1,6 +1,7 @@
 """imt_tpu_torch on the card: the CUDA kernels against their plain torch
-versions, and the dense insert, the sequential witness path, the predicates
-and the Merkle tree on CUDA against the same calls on the CPU.
+versions, and the dense insert, the sequential witness path, the witness
+batches, the sparse tree with its chained batches, the predicates and the
+Merkle tree on CUDA against the same calls on the CPU.
 
 Marked `cuda`; each test skips where torch sees no CUDA device.  This file
 imports nothing of JAX, so on the GPU host (which has none) it runs without
@@ -15,7 +16,8 @@ import numpy as np
 import pytest
 import torch
 
-from imt_tpu_torch import FIELD_MODULUS, IndexedMerkleTree, MerkleTree
+from imt_tpu_torch import (FIELD_MODULUS, IndexedMerkleTree, MerkleTree,
+                           SparseIndexedMerkleTree)
 from imt_tpu_torch.ops import (field, poseidon, poseidon_cuda, vpu_roofline,
                                vpu_roofline_cuda)
 from imt_tpu_torch.tree import indexed
@@ -205,3 +207,43 @@ def test_numpy_arguments_verify_on_the_card(cuda):
     assert tree.verify_proof(leaf1, 1, tree.get_root().cpu().numpy(),
                              p.cpu().numpy())
     assert poseidon_cuda.LAUNCHES["hash2_nodes"] == 4
+
+
+def test_witness_batch_on_cuda_equals_cpu(cuda):
+    """Two witness batches (chains, a duplicate of a present value, zero)
+    on a dense depth-6 tree: every field of every lane, and the state."""
+    gpu = IndexedMerkleTree(6, device=cuda)
+    cpu = IndexedMerkleTree(6, device="cpu")
+    poseidon_cuda.reset_launch_counts()
+    for vals in ([30, 10, 20, 5, 50, 35, 2 ** 200],
+                 [50, 50, 7, 0, 120, 119, 31, 6]):
+        wg, wc = _fields(gpu.insert_batch(vals, witness=True)), \
+            _fields(cpu.insert_batch(vals, witness=True))
+        for k in wc:
+            assert np.array_equal(np.asarray(wg[k]), np.asarray(wc[k])), k
+    assert poseidon_cuda.LAUNCHES["hash3_leaf"] == 2
+    assert poseidon_cuda.LAUNCHES["hash2_nodes"] == 2 * 6
+    for g, c in zip(gpu.levels + [gpu.vals, gpu.next_vals, gpu.next_idxs],
+                    cpu.levels + [cpu.vals, cpu.next_vals, cpu.next_idxs]):
+        assert torch.equal(g.cpu(), c)
+
+
+def test_sparse_tree_on_cuda_equals_cpu(cuda):
+    """A depth-16 sparse tree grown from 2 slots through insert_batches,
+    insert_seq and a witness batch: masks, witnesses, state and root."""
+    gpu = SparseIndexedMerkleTree(16, initial_capacity_log2=1, device=cuda)
+    cpu = SparseIndexedMerkleTree(16, initial_capacity_log2=1, device="cpu")
+    batches = [[30, 10, 2 ** 250, 10], [2 ** 250, 50, 35, 0]]
+    assert np.array_equal(gpu.insert_batches(batches),
+                          cpu.insert_batches(batches))
+    for step in (lambda t: t.insert_seq([7, 7, 99]),
+                 lambda t: t.insert_batch([8, 6, 100], witness=True)):
+        wg, wc = _fields(step(gpu)), _fields(step(cpu))
+        assert wg["low_leaf_proof"].shape[0] == 16
+        for k in wc:
+            assert np.array_equal(np.asarray(wg[k]), np.asarray(wc[k])), k
+    assert gpu.active_depth == cpu.active_depth == 4
+    for g, c in zip(gpu.levels + [gpu.vals, gpu.next_vals, gpu.next_idxs],
+                    cpu.levels + [cpu.vals, cpu.next_vals, cpu.next_idxs]):
+        assert torch.equal(g.cpu(), c)
+    assert gpu.get_root_int() == cpu.get_root_int()

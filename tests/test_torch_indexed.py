@@ -188,8 +188,16 @@ def test_bad_inputs_and_unported_paths_raise():
         t.insert_batch(np.zeros((8, 2), dtype=np.uint32))
     with pytest.raises(ValueError, match="2\\^16"):
         t.insert_batch(np.full((16, 1), 1 << 16, dtype=np.int64))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t.insert_batch([5], witness=True)
+    with pytest.raises(ValueError, match="B, 16, K"):
+        t.insert_batches(np.zeros((16, 2), dtype=np.uint32))
+    with pytest.raises(ValueError, match="equal length"):
+        t.insert_batches([[1], [2, 3]])
+    with pytest.raises(ValueError, match="2\\^16"):
+        t.insert_batches(np.full((1, 16, 1), -1, dtype=np.int64))
+    with pytest.raises(ValueError, match="tree full"):
+        t.insert_batch([5, 6, 7, 8], witness=True)
+    with pytest.raises(ValueError, match="tree full"):
+        t.insert_batches([[5, 6], [7, 8]])
     with pytest.raises(ValueError, match="tree full"):
         t.insert_seq([5, 6, 7, 8])
     assert t.count == 0

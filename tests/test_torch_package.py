@@ -22,7 +22,8 @@ MODULES = [
     "imt_tpu_torch.ops.hashing", "imt_tpu_torch.ops._build",
     "imt_tpu_torch.ops.gates", "imt_tpu_torch.ops.vpu_roofline",
     "imt_tpu_torch.ops.vpu_roofline_cuda", "imt_tpu_torch.tree.merkle",
-    "imt_tpu_torch.tree.indexed", "imt_tpu_torch.tree.reference_oracle",
+    "imt_tpu_torch.tree.indexed", "imt_tpu_torch.tree.batch_witness",
+    "imt_tpu_torch.tree.sparse", "imt_tpu_torch.tree.reference_oracle",
     "imt_tpu_torch.utils.observability",
 ]
 
@@ -33,6 +34,7 @@ def test_import_leaves_jax_and_imt_tpu_out():
         f"for m in {MODULES!r}: importlib.import_module(m)\n"
         "import imt_tpu_torch\n"
         "t = imt_tpu_torch.IndexedMerkleTree(2, device='cpu')\n"
+        "s = imt_tpu_torch.SparseIndexedMerkleTree(2, device='cpu')\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'imt_tpu'))\n"
         "print(repr(bad))\n")

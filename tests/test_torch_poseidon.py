@@ -1,19 +1,22 @@
 """The port's Poseidon constants and plain torch hashes (CPU).
 
 Constants against the JAX package's .npz, the reference anchors, the plain
-hashes against the python-int oracle, and hash2 against imt_tpu's Pallas
-kernel in interpret mode (as tests/test_poseidon_rns_pallas.py runs it),
-compared at canonical limbs.  hash3 and permute_n against the Pallas kernel
-are in test_torch_poseidon_pallas_*.py (each interpret-mode kernel costs
-~30 s on this CPU).  Tolerance: exact.
+hashes against the python-int oracle, and hash2 against imt_tpu's plain
+CIOS engine (``imt_tpu.ops.poseidon_jax``, the XLA path its Pallas kernel
+is held against), compared at canonical limbs.  hash3 and permute_n are in
+test_torch_poseidon_pallas_*.py.  The comparisons with the Pallas kernel
+itself in interpret mode (as tests/test_poseidon_rns_pallas.py runs it,
+~40-60 s each on this CPU) are marked slow.  Tolerance: exact.
 """
 
 import os
 
 import numpy as np
+import pytest
 import torch
 
 from imt_tpu.ops import field as jfield
+from imt_tpu.ops import poseidon_jax
 from imt_tpu.ops import poseidon_rns_pallas as pk
 from imt_tpu_torch.ops import field, hashing, poseidon
 from imt_tpu_torch.ops.poseidon_ref import hash_fixed
@@ -73,6 +76,15 @@ def test_plain_hashes_match_python_oracle():
     assert torch.equal(h, poseidon.hash2(a, b))
 
 
+def test_plain_hash2_matches_imt_tpu_plain():
+    la, lb = lanes(11), lanes(12)
+    want = np.asarray(poseidon_jax.hash2(la, lb))
+    got = poseidon.hash2(torch.as_tensor(la.astype(np.int32)),
+                         torch.as_tensor(lb.astype(np.int32)))
+    assert np.array_equal(got.numpy(), want.astype(np.int32))
+
+
+@pytest.mark.slow
 def test_plain_hash2_matches_pallas_interpret():
     la, lb = lanes(11), lanes(12)
     want = np.asarray(pk.hash2(la, lb, t_tile=128, interpret=True))

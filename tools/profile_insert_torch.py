@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Where imt_tpu_torch's depth-24 paths spend their time on one GPU.
+"""Where imt_tpu_torch's paths spend their time on one GPU.
 
     python tools/profile_insert_torch.py
 
@@ -15,7 +15,11 @@ K = 4096, then:
    of the traced wall time;
 3. the same for the sequential witness path: ``insert_seq`` of 16 values
    (after a warm-up of 4), then one ``non_inclusion_witness`` of 4096
-   queries.
+   queries;
+4. the same for one witness batch at config 3w's shape (a depth-16
+   ``SparseIndexedMerkleTree`` holding all 2^16 slots, K = 4096, after a
+   warm batch) and one ``insert_batches`` group at config 5's (depth 32,
+   2^21 slots held, 8 batches of K = 65536, after a warm group).
 
 Values are numpy-seeded 253-bit random limbs.  Every number is printed with
 the card's name and power limit.
@@ -33,7 +37,8 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from imt_tpu_torch import IndexedMerkleTree  # noqa: E402
+from imt_tpu_torch import (IndexedMerkleTree,  # noqa: E402
+                           SparseIndexedMerkleTree)
 from imt_tpu_torch.ops import field  # noqa: E402
 from imt_tpu_torch.tree import indexed  # noqa: E402
 
@@ -96,6 +101,24 @@ def main() -> int:
            f"insert_seq of {SEQ} values (witness included)", card)
     _trace(lambda: tree.non_inclusion_witness(queries),
            f"non_inclusion_witness of {k} queries", card)
+    del tree
+    torch.cuda.empty_cache()
+
+    # 4. a witness batch (config 3w) and a chained group (config 5)
+    wtree = SparseIndexedMerkleTree(16, initial_capacity_log2=16, device=dev)
+    wtree.insert_batch(batch(), witness=True)                 # warm-up
+    wb = batch()
+    _trace(lambda: wtree.insert_batch(wb, witness=True),
+           f"insert_batch(witness=True) of {k} values at depth 16", card)
+    c5 = SparseIndexedMerkleTree(32, initial_capacity_log2=21, device=dev)
+    group = lambda: torch.as_tensor(np.stack([
+        field.random_limbs(int(rng.integers(1 << 31)), 65536, 253)
+        for _ in range(8)]), device=dev)
+    c5.insert_batches(group())                                # warm-up
+    g = group()
+    _trace(lambda: c5.insert_batches(g),
+           "insert_batches of 8 x 65536 values at depth 32 (2^21 held)",
+           card)
     return 0
 
 
