@@ -19,8 +19,9 @@ raises and the exit code is not 0:
    against the source's count);
 3. Poseidon kernel vs plain, bit for bit, at a ragged width of 65537 lanes
    with edge values and at the main path's own widths (config 5's hash3
-   over 2^17 leaves, down to the sequential path's 2 and 1), and the
-   H(0,0,0) and poseidonperm_x5_254_3 anchors;
+   over 2^17 leaves, down to the sequential path's 2 and 1), hash3 at
+   2^21 and hash2 at 2^20 lanes (phase 7's rebuild), and the H(0,0,0) and
+   poseidonperm_x5_254_3 anchors;
 3b. every probe body (``csrc/vpu_roofline.cu``) vs plain, bit for bit, at
    [48, 65537] with k = 64 and k = 1, and at [48, 65536] with k = 4;
 4. the batched path: four depth-24 batches of 4096 values with planted
@@ -45,7 +46,17 @@ raises and the exit code is not 0:
    from 2^10 slots (every accepted lane passes insert_leaf, a flipped
    sibling fails, the roots chain, the state equals a twin's through
    insert_batch), and a K = 256 witness batch equal to insert_seq on its
-   accepted lanes;
+   accepted lanes; the config-5 tree is then checkpointed;
+7. operations: the config-5 snapshot loaded on the card (root and count
+   equal phase 6's, the rebuild's launches counted), check_tree of 64
+   slots (passes, then catches one flipped bit), one more pipelined group
+   of 8 x 65536 through Watchdog(interval=8).insert_batches(as_numpy=
+   False) under observability.trace and the card's sync debug mode (ok a
+   CUDA tensor equal to set semantics and to an as_numpy=True twin's, the
+   trace naming the hash2 kernel, the watchdog auditing on its 8th call),
+   the kill-resume drill on the card (a worker SIGKILLed after its third
+   checkpoint, resumed to an uninterrupted worker's root and count), and
+   tools/soak_indexed_torch.py's 12 rounds on the card;
 5. numbers: depth-24 inserts/s (batched and sequential), non-inclusion
    witnesses/s, phase 6's sparse chained inserts/s and witness-batch
    inserts/s, the probe's rates per body (its own path), and each
@@ -54,19 +65,23 @@ raises and the exit code is not 0:
    core) against permute_n(st, 2) (the dense core) at widths 2, 8192 and
    2^17.
 
-Phase 6 runs before phase 5, which prints its numbers.  The line before the
-last is the kernels' JSON record (the paths' kernels, each with its launches
-per path, then the entry point no path runs); the last line is ``{"ok": true,
-"device": {...}}``.  Without CUDA it exits non-zero and prints no result.
+Phases 6 and 7 run before phase 5, which prints its numbers.  The line
+before the last is the kernels' JSON record (the paths' kernels, each with
+its launches per path, then the entry point no path runs); the last line is
+``{"ok": true, "device": {...}}``.  Without CUDA it exits non-zero and
+prints no result.
 """
 
 from __future__ import annotations
 
+import glob
+import importlib.util
 import json
 import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -95,6 +110,23 @@ W_DEPTH, W_K, W_BATCHES, W_SEQ = 16, 4096, 8, 256
 # sequential one's (2)
 PHASE3_WIDTHS = (2 * C5_K, RAGGED, C5_K, 2 * K, K, K // 2 + 1, 129,
                  SEQ_WIDTH, 1)
+# phase 3, the resume's own widths (phase 7): its rebuild runs hash3 over
+# every held slot of config 5 and hash2 over the level above.  The plain
+# version runs over them in calls of PLAIN_CHUNK lanes (lanes are
+# independent): at 2^21 lanes its [16, 16, 3, B, 3] int64 MDS products
+# alone would take 38.7 GB of the card.
+PHASE3_WIDE = (("hash3_leaf", 1 << C5_CAPACITY),
+               ("hash2_nodes", 1 << (C5_CAPACITY - 1)))
+PLAIN_CHUNK = 1 << 18
+# phase 7: the watchdog's cadence and sample, the follow-up calls that
+# complete its cadence, and the kill-resume drill on the card (a depth-32
+# tree that grows from 2^10 slots to 2^16 inside the run)
+WD_INTERVAL, WD_SAMPLE, WD_SMALL_K = 8, 16, 16
+AUDIT_SAMPLE = 64
+DRILL = dict(depth=32, capacity_log2=10, k=4096, n_batches=12)
+SOAK_ARGS = ("--rounds", "12", "--seed", "7")
+# the __global__ function behind imt_hash2_nodes, as a trace names it
+HASH2_SYMBOL = "hash2_kernel"
 
 ANCHOR_H000 = 1960587138944869480785025106734196872454309951825657414575195034687326603497
 TV_PERM_012 = [
@@ -112,12 +144,13 @@ ROOFLINE_SOURCE = "imt_tpu_torch/ops/csrc/vpu_roofline.cu"
 POSEIDON = {
     "hash3_leaf": ("imt_tpu/ops/poseidon_rns_pallas.py:1240",
                    ("insert_batch", "sequential", "sparse_batches",
-                    "witness_batch")),
+                    "witness_batch", "resume", "watchdog_group", "drill")),
     "hash2_nodes": ("imt_tpu/ops/poseidon_rns_pallas.py:1240",
                     ("insert_batch", "sequential", "sparse_batches",
-                     "witness_batch")),
+                     "witness_batch", "resume", "watchdog_group", "drill")),
     "nodes_to_limbs": ("imt_tpu/ops/field_rns.py:262",
-                       ("insert_batch", "sequential", "witness_batch")),
+                       ("insert_batch", "sequential", "witness_batch",
+                        "resume", "watchdog_group", "drill")),
     "limbs_to_nodes": ("imt_tpu/ops/field_rns.py:249", ("sequential",)),
     "permute_n": ("imt_tpu/ops/poseidon_rns_pallas.py:1199", ()),
 }
@@ -415,7 +448,7 @@ def phase_kernel_vs_plain(torch, pc, plain, field) -> dict:
     decode) and at a ragged width."""
     rng = np.random.default_rng(SEED)
     cols = seeded_limbs(rng, max(PHASE3_WIDTHS))
-    for i, v in enumerate([0, 1, field.P - 1, field.P, (1 << 256) - 1]):
+    for i, v in enumerate(edge_values(field)):
         cols[:, i] = int_limbs(v)
     dev = torch.device("cuda")
     errs = {name: 0 for name in POSEIDON}
@@ -461,6 +494,57 @@ def phase_kernel_vs_plain(torch, pc, plain, field) -> dict:
         raise AssertionError("poseidonperm_x5_254_3 vector mismatch")
     print("phase 3: kernel reproduces H(0,0,0) = 0x0455a7...48e9 and the "
           "poseidonperm_x5_254_3 vector")
+    return errs
+
+
+def edge_values(field) -> list:
+    """Values phase 3 puts in the first lanes: 0, 1, p - 1, p (which must
+    reduce) and the largest 256-bit value."""
+    return [0, 1, field.P - 1, field.P, (1 << 256) - 1]
+
+
+def chunked(fn, args, chunk: int):
+    """fn over the lanes (last axis) of `args`, `chunk` lanes per call."""
+    import torch
+    width = args[0].shape[-1]
+    return torch.cat([fn(*(a[..., i:i + chunk].contiguous() for a in args))
+                      for i in range(0, width, chunk)], dim=-1)
+
+
+def phase_wide_kernel_vs_plain(torch, pc, plain, field) -> dict:
+    """hash3 and hash2 at the widths of the resume's rebuild (phase 7),
+    kernel against plain, bit for bit, with edge values in the first
+    lanes; each kernel in one launch over the whole width."""
+    rng = np.random.default_rng(SEED + 9)
+    dev = torch.device("cuda")
+    errs = {}
+    for name, width in PHASE3_WIDE:
+        cols = [seeded_limbs(rng, width) for _ in range(3)]
+        for i, v in enumerate(edge_values(field)):
+            cols[0][:, i] = int_limbs(v)
+        L = [torch.as_tensor(c, device=dev) for c in cols]
+        args = tuple(L) if name == "hash3_leaf" else tuple(
+            chunked(plain.limbs_to_nodes, (x,), PLAIN_CHUNK) for x in L[:2])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = getattr(pc, name)(*args)
+        torch.cuda.synchronize()
+        kernel_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = chunked(getattr(plain, name), args, PLAIN_CHUNK)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        errs[name] = max_abs_err(got, want)
+        if errs[name] != 0:
+            raise AssertionError(f"{name} width {width}: kernel differs "
+                                 "from plain")
+        print(f"phase 3: {name} width {width} (phase 7's rebuild): kernel "
+              f"vs plain max_abs_err {errs[name]} (tolerance 0, bit-exact); "
+              f"kernel {kernel_s} s in one launch (its first at this "
+              f"width), plain {plain_s} s in {width // PLAIN_CHUNK} calls of "
+              f"{PLAIN_CHUNK} lanes")
+        del L, args, got, want
+    torch.cuda.empty_cache()
     return errs
 
 
@@ -864,9 +948,11 @@ def same_state(a, b) -> bool:
         [b.vals, b.next_vals, b.next_idxs] + b.levels))
 
 
-def phase_sparse(torch, pc, field, indexed, sparse, dev) -> dict:
+def phase_sparse(torch, pc, field, indexed, sparse, checkpoint, dev,
+                 snap_dir: str) -> dict:
     """Config 5's shape: a depth-32 sparse tree with 2^21 slots held, 16
-    batches of K = 65536 through insert_batches in groups of 8."""
+    batches of K = 65536 through insert_batches in groups of 8; the tree
+    is then checkpointed into `snap_dir` for phase 7."""
     rng = np.random.default_rng(SEED + 6)
     batches, prev = [], None
     for _ in range(C5_BATCHES):
@@ -936,9 +1022,19 @@ def phase_sparse(torch, pc, field, indexed, sparse, dev) -> dict:
         raise AssertionError("config 5: the list is not the accepted values")
     print(f"phase 6: list walk from slot 0 visits the {order.size} accepted "
           "values in strictly increasing order")
+    path = os.path.join(snap_dir, "config5.npz")
+    t0 = time.perf_counter()
+    checkpoint.save(tree, path)
+    save_s = time.perf_counter() - t0
+    count = tree.count
     del tree
     torch.cuda.empty_cache()
-    return {"launches": launches, "group_s": group_s}
+    print(f"phase 6: checkpoint.save of the config-5 tree: {save_s} s, "
+          f"{os.path.getsize(path)} bytes on disk (2^{C5_CAPACITY} slots, "
+          f"{3 * 16 * 4 << C5_CAPACITY} bytes of limbs)")
+    return {"launches": launches, "group_s": group_s, "snapshot": path,
+            "root": root, "count": count, "save_s": save_s,
+            "stream": stream}
 
 
 def phase_witness(torch, pc, field, indexed, sparse, dev) -> dict:
@@ -1036,6 +1132,267 @@ def phase_witness(torch, pc, field, indexed, sparse, dev) -> dict:
           f"field by field on its {int(wb.ok.sum())} accepted lanes, and the "
           "states agree")
     return {"launches": launches, "batch_s": batch_s, "deep_s": deep_s}
+
+
+# -- phase 7: operations ----------------------------------------------------
+
+def resume_launches(active_depth: int, full_depth: int) -> tuple:
+    """The launches of a resume, then of the root read after it: the load
+    rebuilds with one hash3 over the held slots and one hash2 per level of
+    the active prefix; the root read folds the prefix root over the zero
+    spine (one hash2 per level above the prefix) and decodes it."""
+    return ({"hash3_leaf": 1, "hash2_nodes": active_depth},
+            {"hash2_nodes": full_depth - active_depth, "nodes_to_limbs": 1})
+
+
+def launched(pc, since: dict | None = None) -> dict:
+    """The entry points launched (nonzero counts), since `since`."""
+    since = since or {}
+    return {k: v - since.get(k, 0) for k, v in pc.LAUNCHES.items()
+            if v - since.get(k, 0)}
+
+
+def group_semantics(prior: np.ndarray, group: np.ndarray) -> np.ndarray:
+    """bool[B, K]: set semantics of the batches `group` [B, 16, K] inserted
+    after the stream `prior` [16, N]."""
+    b, _, k = group.shape
+    stream = np.concatenate([prior, *group], axis=1)
+    return set_semantics(stream)[prior.shape[1]:].reshape(b, k)
+
+
+def trace_kernels(path: str, symbol: str) -> list:
+    """The kernel events of a Chrome trace that name `symbol`."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return [e for e in events
+            if e.get("cat") == "kernel" and symbol in e.get("name", "")]
+
+
+def soak_tool():
+    spec = importlib.util.spec_from_file_location(
+        "soak_indexed_torch", os.path.join(HERE, "tools",
+                                           "soak_indexed_torch.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_operations(torch, pc, field, indexed, sparse_out: dict, dev,
+                     work_dir: str) -> dict:
+    """The operations layer at config 5's scale: resume phase 6's snapshot,
+    audit it and catch a flipped bit, insert one more pipelined group under
+    the watchdog and the profiler, then the kill-resume drill and the soak
+    on the card."""
+    from imt_tpu_torch.utils import checkpoint, observability
+    from imt_tpu_torch.utils.health import (TreeCorruption, Watchdog,
+                                            check_tree)
+    from imt_tpu_torch.utils.observability import GLOBAL_METRICS
+    t_phase = time.perf_counter()
+    path, launches, out = sparse_out["snapshot"], {}, {}
+
+    # -- resume: the snapshot back on the card, to phase 6's root and count
+    torch.cuda.synchronize()
+    pc.reset_launch_counts()
+    t0 = time.perf_counter()
+    resumed = checkpoint.load(path, device=dev)
+    torch.cuda.synchronize()
+    out["load_s"] = time.perf_counter() - t0
+    load_counts = launched(pc)
+    root = resumed.get_root_int()
+    root_counts = launched(pc, load_counts)
+    launches["resume"] = dict(pc.LAUNCHES)
+    check_launched("resume", launches["resume"])
+    if (root, resumed.count, resumed.active_depth) != (
+            sparse_out["root"], sparse_out["count"], C5_CAPACITY):
+        raise AssertionError("the resumed tree differs from phase 6's")
+    if (load_counts, root_counts) != resume_launches(resumed.active_depth,
+                                                     resumed.tree_depth):
+        raise AssertionError(f"resume launches {load_counts} then "
+                             f"{root_counts}")
+    print(f"phase 7: checkpoint.load of the config-5 snapshot "
+          f"({os.path.getsize(path)} bytes): {out['load_s']} s, root "
+          f"{root:#x} and count {resumed.count} equal phase 6's; launches: "
+          f"the load {load_counts}, the root read after it {root_counts} "
+          f"(the resume path's count includes both)")
+    # the load's steps, apart: np.load, the dtype cast and host-to-device
+    # copy of the three limb arrays, the rebuild of the levels
+    t0 = time.perf_counter()
+    with np.load(path) as z:
+        arrays = {k: z[k] for k in z.files}
+    np_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = [np.ascontiguousarray(arrays[k], dtype=np.int64).astype(np.int32)
+            for k in ("vals", "next_vals", "next_idxs")]
+    cast_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    state = [torch.as_tensor(h, device=dev) for h in host]
+    torch.cuda.synchronize()
+    copy_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    levels = indexed._build_levels(indexed.hashing.hash3_leaf(*state),
+                                   resumed.active_depth)
+    torch.cuda.synchronize()
+    out["rebuild_s"] = time.perf_counter() - t0
+    if not all(torch.equal(x, y) for x, y in zip(
+            state + levels, [resumed.vals, resumed.next_vals,
+                             resumed.next_idxs] + resumed.levels)):
+        raise AssertionError("the load's steps, apart, give another state")
+    del arrays, host, state, levels
+    print(f"phase 7: the load apart: np.load {np_s} s, int64/int32 cast "
+          f"{cast_s} s, host-to-device copy {copy_s} s, rebuild (hash3 over "
+          f"2^{C5_CAPACITY} leaves, {C5_CAPACITY} hash2 levels) "
+          f"{out['rebuild_s']} s")
+
+    # -- audit: clean, then a flipped bit of an occupied slot's value
+    t0 = time.perf_counter()
+    report = check_tree(resumed, sample=AUDIT_SAMPLE)
+    out["audit_s"] = time.perf_counter() - t0
+    if not report.ok or len(report.checked_slots) != AUDIT_SAMPLE + 1:
+        raise AssertionError("the audit of the resumed tree failed")
+    slot = next(s for s in report.checked_slots[1:]
+                if resumed.get_leaf_ints(s)[0])
+    resumed.vals[0, slot] ^= 1
+    try:
+        check_tree(resumed, sample=AUDIT_SAMPLE)
+    except TreeCorruption as e:
+        caught = str(e)
+    else:
+        raise AssertionError("the audit missed a flipped bit")
+    finally:
+        resumed.vals[0, slot] ^= 1
+    if f"({slot}, 'path'" not in caught:
+        raise AssertionError(f"the audit did not name slot {slot}'s path: "
+                             f"{caught[:200]}")
+    print(f"phase 7: check_tree(sample={AUDIT_SAMPLE}) of the resumed tree "
+          f"passes in {out['audit_s']} s ({AUDIT_SAMPLE + 1} slots, "
+          f"{resumed.tree_depth + 1} python-int hashes each); with one bit "
+          f"of slot {slot}'s value "
+          "flipped it raises TreeCorruption naming that slot's path")
+
+    # -- one more group, pipelined, under the watchdog and the profiler
+    rng = np.random.default_rng(SEED + 8)
+    prev, batches = sparse_out["stream"][:, -C5_K:], []
+    for _ in range(C5_GROUP):
+        prev = plant(rng, field.random_limbs(int(rng.integers(1 << 31)),
+                                             C5_K, 253), prev)
+        batches.append(prev)
+    group = np.stack(batches)
+    want = group_semantics(sparse_out["stream"], group)
+    twin = checkpoint.load(path, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    twin_ok = twin.insert_batches(group)
+    torch.cuda.synchronize()
+    out["twin_group_s"] = time.perf_counter() - t0
+
+    wd = Watchdog(resumed, interval=WD_INTERVAL, sample=WD_SAMPLE)
+    trace_dir = os.path.join(work_dir, "trace")
+    submitted = GLOBAL_METRICS.inserts_submitted
+    pc.reset_launch_counts()
+    t_trace = time.perf_counter()
+    with observability.trace("config5_group", trace_dir=trace_dir):
+        # the profiler has started; a wait for the card inside the call
+        # raises
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            ok = wd.insert_batches(group, as_numpy=False)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        out["queued_s"] = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        out["group_s"] = time.perf_counter() - t0
+    out["trace_s"] = time.perf_counter() - t_trace
+    group_counts = launched(pc)
+    if not (isinstance(ok, torch.Tensor) and ok.device.type == dev.type
+            and ok.dtype == torch.bool and ok.shape == want.shape):
+        raise AssertionError("as_numpy=False did not leave ok on the card")
+    if GLOBAL_METRICS.inserts_submitted - submitted != group.shape[0] * C5_K:
+        raise AssertionError("inserts_submitted did not count the group")
+    got = ok.cpu().numpy()
+    if not np.array_equal(got, want) or not np.array_equal(twin_ok, got):
+        raise AssertionError("the group's ok differs from set semantics or "
+                             "from the as_numpy=True twin's")
+    if not same_state(twin, resumed):
+        raise AssertionError("the group's state differs from the twin's")
+    del twin
+    torch.cuda.empty_cache()
+    files = glob.glob(os.path.join(trace_dir, "config5_group.*.json"))
+    if len(files) != 1:
+        raise AssertionError(f"the trace wrote {files}")
+    kern = trace_kernels(files[0], HASH2_SYMBOL)
+    if not kern:
+        raise AssertionError(f"the trace names no {HASH2_SYMBOL} kernel")
+    print(f"phase 7: one group of {C5_GROUP} x K={C5_K} through "
+          f"Watchdog(interval={WD_INTERVAL}).insert_batches(as_numpy=False) "
+          f"under trace and with the card's sync debug mode at 'error': "
+          f"queued in {out['queued_s']} s, done in {out['group_s']} s "
+          f"(profiled; the trace's start and export included, "
+          f"{out['trace_s']} s); an as_numpy=True group on a twin loaded "
+          f"from the snapshot, before it: {out['twin_group_s']} s (not "
+          f"profiled); ok is a tensor "
+          f"on {ok.device} equal to set semantics ({int(got.sum())} accepted) and "
+          f"to the twin's, the states agree, inserts_submitted "
+          f"+{group.shape[0] * C5_K}; launches {group_counts}; the trace "
+          f"({os.path.getsize(files[0])} bytes) holds {len(kern)} "
+          f"{HASH2_SYMBOL} kernel events, "
+          f"{sum(e.get('dur', 0) for e in kern) / 1e3} ms of device time")
+
+    # the watchdog's cadence: it audits on the 8th mutating call, not before
+    if wd._audits != 0:
+        raise AssertionError("the watchdog audited before its cadence")
+    small = []
+    for _ in range(WD_INTERVAL - 1):
+        if wd._audits:
+            raise AssertionError("the watchdog audited before its cadence")
+        small.append(wd.insert_batch(field.random_limbs(
+            int(rng.integers(1 << 31)), WD_SMALL_K, 253), as_numpy=False))
+    if wd._audits != 1 or not bool(torch.stack(small).all()):
+        raise AssertionError("the watchdog did not audit on its 8th call")
+    launches["watchdog_group"] = dict(pc.LAUNCHES)
+    check_launched("watchdog_group", launches["watchdog_group"])
+    print(f"phase 7: {WD_INTERVAL - 1} more insert_batch(as_numpy=False) "
+          f"calls of K={WD_SMALL_K}: the watchdog audited once, on the "
+          f"{WD_INTERVAL}th call (sample {WD_SAMPLE}); the path's launches "
+          f"{launched(pc)}")
+    del wd, resumed
+    torch.cuda.empty_cache()
+
+    # -- the kill-resume drill on the card
+    drill_dir = os.path.join(work_dir, "drill")
+    os.makedirs(drill_dir)
+    pc.reset_launch_counts()
+    drill = soak_tool().kill_resume(drill_dir, dev.type, **DRILL)
+    launches["drill"] = dict(pc.LAUNCHES)
+    check_launched("drill", launches["drill"])
+    out["drill"] = drill
+    print(f"phase 7: kill-resume drill (EngineConfig(tree_depth=32, "
+          f"initial_capacity_log2=10), {DRILL['n_batches']} batches of "
+          f"K={DRILL['k']}): worker killed after {drill['batches_done']} "
+          f"checkpointed batches, {drill['kill_s']} s after its start; "
+          f"resumed and replayed in {drill['resume_s']} s to the "
+          f"uninterrupted worker's root {drill['root']:#x} and count "
+          f"{drill['count']}; neither worker built a kernel; launches "
+          f"{launched(pc)}")
+
+    # -- the soak on the card
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=HERE + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    run = subprocess.run(
+        [sys.executable, os.path.join(HERE, "tools", "soak_indexed_torch.py"),
+         "--device", dev.type, *SOAK_ARGS], capture_output=True, text=True,
+        timeout=900, cwd=HERE, env=env)
+    out["soak_s"] = time.perf_counter() - t0
+    if run.returncode != 0 or "SOAK PASSED" not in run.stdout:
+        raise AssertionError(f"the soak failed ({run.returncode}): "
+                             f"{run.stderr[-3000:]}")
+    print(f"phase 7: tools/soak_indexed_torch.py --device {dev.type} "
+          f"{' '.join(SOAK_ARGS)}: {run.stdout.strip().splitlines()[-1]} "
+          f"({out['soak_s']} s with its start)")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 7: done in {out['phase_s']:.1f} s")
+    return {"launches": launches, **out}
 
 
 # -- phase 5: numbers ---------------------------------------------------------
@@ -1244,6 +1601,7 @@ def main() -> int:
     from imt_tpu_torch.ops import vpu_roofline as vr
     from imt_tpu_torch.ops import vpu_roofline_cuda as vc
     from imt_tpu_torch.tree import indexed, merkle, reference_oracle, sparse
+    from imt_tpu_torch.utils import checkpoint
 
     card = vr.nvidia_smi("name,power.limit")
     clock_mhz = float(vr.nvidia_smi("clocks.max.sm").split()[0])
@@ -1260,22 +1618,31 @@ def main() -> int:
 
     phase_build(_build)
     errs = phase_kernel_vs_plain(torch, pc, plain, field)
+    for name, err in phase_wide_kernel_vs_plain(torch, pc, plain,
+                                                field).items():
+        errs[name] = max(errs[name], err)
     errs.update(phase_roofline_vs_plain(torch, vr, vc))
     slice_out = phase_slice(torch, pc, field, indexed, reference_oracle)
     seq_out = phase_sequential(torch, pc, field, indexed, merkle,
                                reference_oracle, slice_out,
                                torch.device("cuda"))
     dev = torch.device("cuda")
-    t6 = time.perf_counter()
-    sparse_out = phase_sparse(torch, pc, field, indexed, sparse, dev)
-    witness_out = phase_witness(torch, pc, field, indexed, sparse, dev)
-    print(f"phase 6: done in {time.perf_counter() - t6:.1f} s")
+    with tempfile.TemporaryDirectory(prefix="imt_smoke_") as work_dir:
+        t6 = time.perf_counter()
+        sparse_out = phase_sparse(torch, pc, field, indexed, sparse,
+                                  checkpoint, dev, work_dir)
+        witness_out = phase_witness(torch, pc, field, indexed, sparse, dev)
+        print(f"phase 6: done in {time.perf_counter() - t6:.1f} s")
+        ops_out = phase_operations(torch, pc, field, indexed, sparse_out,
+                                   dev, work_dir)
+    del sparse_out["stream"]
     numbers = phase_numbers(torch, pc, plain, vr, vc, indexed, field, card,
                             clock_mhz, slice_out, sparse_out, witness_out)
     launches = {"insert_batch": slice_out["launches"],
                 "sequential": seq_out["launches"],
                 "sparse_batches": sparse_out["launches"],
                 "witness_batch": witness_out["launches"],
+                **ops_out["launches"],
                 "probe": numbers["probe_launches"]}
 
     print(card)

@@ -16,6 +16,17 @@ Counterpart of ``imt_tpu.tree.indexed`` for the dense tree: leaf semantics
   queries with one sort; ``verify_non_inclusion`` and ``insert_leaf`` are
   the verifier predicates.
 
+Every mutating entry point and ``non_inclusion_witness`` take ``as_numpy``
+(``imt_tpu`` :1037-1210).  With the default True, ``ok`` comes back as
+numpy, which waits for the device once per call.  With False it stays a
+bool tensor on the tree's device and the call neither reads a value back
+nor waits for the card: inserts are counted as submitted
+(``record_submitted``), the debug-witness check is skipped, and calls queue
+behind one another on the card.  Values given as python ints or numpy are
+range-checked on the host and copied to the card from pinned memory; limbs
+given as a tensor are checked where they lie, which on the card reads one
+flag back.
+
 Every hash goes through ``ops/hashing.py``: the plain torch path for CPU
 tensors, the CUDA kernel for CUDA tensors.  A tree lives on the card unless
 the caller asks for ``device="cpu"``.
@@ -75,9 +86,10 @@ def debug_witness_enabled() -> bool:
 class InsertWitness:
     """The argument bundle of the reference's insert_leaf chip
     (src/indexed_merkle_tree.rs:231-244) for K inserts (``imt_tpu`` :136),
-    as tensors on the tree's device; ``ok`` is numpy."""
+    as tensors on the tree's device; ``ok`` is numpy, or with
+    ``as_numpy=False`` a bool tensor on the tree's device."""
 
-    ok: np.ndarray                         # bool[K]
+    ok: np.ndarray | torch.Tensor          # bool[K]
     old_root: torch.Tensor                 # int32[16, K]
     low_leaf_val: torch.Tensor             # int32[16, K]
     low_leaf_next_val: torch.Tensor        # int32[16, K]
@@ -98,9 +110,10 @@ class InsertWitness:
 class NonInclusionWitness:
     """Witness bundle of verify_non_inclusion for K queries (``imt_tpu``
     :158; the reference's standalone chip entry,
-    src/indexed_merkle_tree.rs:127); ``ok`` is numpy."""
+    src/indexed_merkle_tree.rs:127); ``ok`` is numpy, or with
+    ``as_numpy=False`` a bool tensor on the tree's device."""
 
-    ok: np.ndarray                         # bool[K] (a low leaf exists)
+    ok: np.ndarray | torch.Tensor          # bool[K] (a low leaf exists)
     root: torch.Tensor                     # int32[16, K]
     low_leaf_val: torch.Tensor             # int32[16, K]
     low_leaf_next_val: torch.Tensor        # int32[16, K]
@@ -146,11 +159,26 @@ _KEY_GROUPS = ((15, 14, 13), (12, 11, 10), (9, 8, 7), (6, 5, 4), (3, 2, 1),
                (0,))
 
 
+def _stage(host: np.ndarray, device) -> torch.Tensor:
+    """Host limbs -> int32 on `device`.  To the card the copy goes from
+    pinned memory and does not wait for the device, so a call queues its
+    work behind whatever the card is running."""
+    x = torch.from_numpy(np.ascontiguousarray(host, dtype=np.int32))
+    if torch.device(device).type != "cuda":
+        return x.to(device)
+    return x.pin_memory().to(device, non_blocking=True)
+
+
 def _checked_limbs(values, device) -> torch.Tensor:
     """Packed limbs (numpy or torch, any integer dtype) -> int32 on
-    `device`, after checking that every limb lies in [0, 2^16)."""
-    x = torch.as_tensor(np.asarray(values).astype(np.int64)) \
-        if isinstance(values, np.ndarray) else values.to(torch.int64)
+    `device`, after checking that every limb lies in [0, 2^16): numpy on
+    the host, a tensor where it lies."""
+    if isinstance(values, np.ndarray):
+        x = values.astype(np.int64)
+        if ((x < 0) | (x > field.MASK)).any():
+            raise ValueError("limbs must lie in [0, 2^16)")
+        return _stage(x, device)
+    x = values.to(torch.int64)
     if bool(((x < 0) | (x > field.MASK)).any()):
         raise ValueError("limbs must lie in [0, 2^16)")
     return x.to(device=device, dtype=torch.int32).contiguous()
@@ -164,8 +192,8 @@ def _as_limb_batch(values, device) -> tuple[torch.Tensor, int]:
             raise ValueError(
                 f"expected [16, K] limb array, got {tuple(values.shape)}")
         return _checked_limbs(values, device), values.shape[1]
-    return (torch.as_tensor(field.ints_to_limbs([int(v) for v in values]),
-                            device=device), len(values))
+    return (_stage(field.ints_to_limbs([int(v) for v in values]), device),
+            len(values))
 
 
 def _as_batch_stack(values, device) -> torch.Tensor:
@@ -178,9 +206,8 @@ def _as_batch_stack(values, device) -> torch.Tensor:
         return _checked_limbs(values, device)
     if len({len(v) for v in values}) != 1:
         raise ValueError("all batches must have equal length")
-    return torch.as_tensor(np.stack(
-        [field.ints_to_limbs([int(x) for x in v]) for v in values]),
-        device=device)
+    return _stage(np.stack(
+        [field.ints_to_limbs([int(x) for x in v]) for v in values]), device)
 
 
 def index_to_limbs(idx: torch.Tensor) -> torch.Tensor:
@@ -412,14 +439,15 @@ def _link_batch(vals, nvs, nis, new_vals, sort, slab_start: int, n: int,
     # then the low-leaf pointer rewrites of accepted lanes, then the new
     # rows' pointers.  The order matters: a low target that is itself a new
     # slot is overwritten by the new-row write that follows, with the same
-    # successor.  The accepted lanes' low targets are distinct.
+    # successor.  The accepted lanes' low targets are distinct; a rejected
+    # lane writes its own new slot instead, which no accepted lane targets
+    # and the new-row write overwrites: a mask, not a host sync.
     new_cols = slice(slab_start, slab_start + k)
     vals[:, new_cols] = torch.where(ok, new_vals, 0)
-    acc = ok.nonzero().squeeze(1)
-    low_tgt = prev_slot[acc]
-    nvs[:, low_tgt] = new_vals[:, acc]
+    low_tgt = torch.where(ok, prev_slot, slots)
+    nvs[:, low_tgt] = new_vals
     nvs[:, new_cols] = succ_val
-    nis[:, low_tgt] = index_to_limbs(slots[acc])
+    nis[:, low_tgt] = index_to_limbs(slots)
     nis[:, new_cols] = index_to_limbs(succ_slot)
     return prev_slot, ok
 
@@ -654,7 +682,8 @@ def _finish_witness(w: dict, depth: int, full_depth: int) -> InsertWitness:
     """Witness fields with the roots and proofs as nodes of a depth-`depth`
     active prefix -> the InsertWitness of the full-depth tree: the old and
     new roots folded over the zero spine in one series, the proofs
-    extended, then all of them decoded in one launch; ``ok`` to numpy."""
+    extended, then all of them decoded in one launch; ``ok`` stays a
+    tensor."""
     k = w["old_root"].shape[1]
     roots = _spine_fold(torch.cat([w["old_root"], w["new_root"]], dim=1),
                         depth, full_depth)
@@ -668,7 +697,6 @@ def _finish_witness(w: dict, depth: int, full_depth: int) -> InsertWitness:
     w["old_root"], w["new_root"] = dec[0], dec[1]
     w["low_leaf_proof"] = dec[2:2 + full_depth]
     w["new_leaf_proof"] = dec[2 + full_depth:]
-    w["ok"] = w["ok"].cpu().numpy()
     return InsertWitness(**w)
 
 
@@ -724,7 +752,7 @@ def _non_inclusion(vals, nvs, nis, levels, queries, full_depth: int) -> dict:
                                    depth, full_depth)
     root = hashing.dec_nodes(_spine_fold(levels[-1], depth, full_depth)) \
         .expand(field.LIMBS, k).contiguous()
-    return dict(ok=ok.cpu().numpy(), root=root, low_leaf_val=low_val,
+    return dict(ok=ok, root=root, low_leaf_val=low_val,
                 low_leaf_next_val=low_nv, low_leaf_next_idx=low_ni,
                 low_leaf_proof=_dec_path(proof),
                 low_leaf_proof_helper=helpers,
@@ -883,36 +911,61 @@ class IndexedMerkleTree:
         return tuple(field.limbs_to_int(x[:, index].cpu())
                      for x in (self.vals, self.next_vals, self.next_idxs))
 
-    def non_inclusion_witness(self, values) -> NonInclusionWitness:
+    def non_inclusion_witness(self, values,
+                              as_numpy: bool = True) -> NonInclusionWitness:
         """Batched non-membership witnesses for `values` (``imt_tpu``
         :1036): a list of python ints or packed canonical limbs [16, K].
         ok=False lanes mean the value is present (or 0): no witness
-        exists."""
+        exists.  as_numpy=False leaves ``ok`` on the device too."""
         queries, k = _as_limb_batch(values, self.device)
         GLOBAL_METRICS.record_queries(k)
         live = self._live
         w = NonInclusionWitness(**_non_inclusion(
             self.vals[:, :live], self.next_vals[:, :live],
             self.next_idxs[:, :live], self.levels, queries, self.tree_depth))
+        if not as_numpy:
+            return w
+        w.ok = w.ok.cpu().numpy()
         if _debug_witness:
             check_non_inclusion_witness(w, queries)
         return w
 
     # -- mutation ------------------------------------------------------------
 
-    def insert(self, value: int) -> InsertWitness:
+    @staticmethod
+    def _accepted(ok: torch.Tensor, as_numpy: bool):
+        """The acceptance mask `ok` (a device tensor) as the caller asked
+        (``imt_tpu`` :1146-1148): numpy, with the accepted and rejected
+        inserts counted, or left on the device and counted as submitted,
+        which reads nothing back."""
+        if not as_numpy:
+            GLOBAL_METRICS.record_submitted(ok.numel())
+            return ok
+        ok = ok.cpu().numpy()
+        accepted = int(ok.sum())
+        GLOBAL_METRICS.record_inserts(accepted, ok.size - accepted)
+        return ok
+
+    def _package_witness(self, w: InsertWitness,
+                         as_numpy: bool) -> InsertWitness:
+        w.ok = self._accepted(w.ok, as_numpy)
+        if as_numpy and _debug_witness:
+            check_insert_witness(w)
+        return w
+
+    def insert(self, value: int, as_numpy: bool = True) -> InsertWitness:
         """Sequential insert with the full witness bundle (``imt_tpu``
         :1065; reference parity): a one-lane ``insert_seq``."""
-        return self.insert_seq([value])
+        return self.insert_seq([value], as_numpy=as_numpy)
 
-    def insert_seq(self, values) -> InsertWitness:
+    def insert_seq(self, values, as_numpy: bool = True) -> InsertWitness:
         """Strictly sequential inserts, each seeing the state the previous
         one left (the reference's test loop, src/indexed_merkle_tree.rs:
         710-802; ``imt_tpu`` :1165), as a python loop of ``_insert_step``.
         `values` is a list of python ints or packed canonical limbs
         [16, C].  Returns one InsertWitness with C lanes in the batch layout
         ([16, C] / [depth, 16, C]); the loop itself never waits for the
-        device."""
+        device, and with as_numpy=False neither does the call."""
         new_vals, c = _as_limb_batch(values, self.device)
         self._reserve(c)
         steps = []
@@ -921,18 +974,17 @@ class IndexedMerkleTree:
             self._advance(1)
         w = _stack_witness(steps, self.active_depth, self.tree_depth)
         GLOBAL_METRICS.record_hashes(c * (2 + 2 * self.tree_depth))
-        GLOBAL_METRICS.record_inserts(int(w.ok.sum()), c - int(w.ok.sum()))
-        if _debug_witness:
-            check_insert_witness(w)
-        return w
+        return self._package_witness(w, as_numpy)
 
-    def insert_batch(self, values, witness: bool = False):
+    def insert_batch(self, values, witness: bool = False,
+                     as_numpy: bool = True):
         """Batched insert with sequential semantics, sort-resolved, in place.
         `values` is a list of python ints or packed canonical limbs [16, K]
         (numpy or torch).  Returns the per-value acceptance mask bool[K];
         with witness=True, the InsertWitness of every insert instead
         (``batch_witness.py``), equal on its accepted lanes to what
-        ``insert_seq`` of the same values returns."""
+        ``insert_seq`` of the same values returns.  as_numpy=False keeps
+        the mask (and the witness) on the device."""
         new_vals, k = _as_limb_batch(values, self.device)
         self._reserve(k)
         ad = self.active_depth
@@ -943,11 +995,8 @@ class IndexedMerkleTree:
                 new_vals, self.count)
             self._advance(k)
             GLOBAL_METRICS.record_hashes(2 * k * (1 + ad))
-            w = _finish_witness(fields, ad, self.tree_depth)
-            GLOBAL_METRICS.record_inserts(int(w.ok.sum()), k - int(w.ok.sum()))
-            if _debug_witness:
-                check_insert_witness(w)
-            return w
+            return self._package_witness(
+                _finish_witness(fields, ad, self.tree_depth), as_numpy)
         low_idx, low_hash, slab_start, slab_hash, ok = _plan_batch(
             self.vals, self.next_vals, self.next_idxs, new_vals, self.count,
             self.vals.shape[1], k)
@@ -955,18 +1004,16 @@ class IndexedMerkleTree:
                             slab_hash, ad, _crossover(ad, k))
         self._advance(k)
         GLOBAL_METRICS.record_hashes(_batch_hash_count(ad, k))
-        ok = ok.cpu().numpy()
-        GLOBAL_METRICS.record_inserts(int(ok.sum()), k - int(ok.sum()))
-        return ok
+        return self._accepted(ok, as_numpy)
 
-    def insert_batches(self, values) -> np.ndarray:
+    def insert_batches(self, values, as_numpy: bool = True):
         """B chained batches (``imt_tpu`` :1187, :613): packed limbs
         [B, 16, K] or B equal-length lists of python ints, state-identical
         to B ``insert_batch`` calls.  Each batch updates the levels up to
         the crossover (``_crossover``), from where ``_update_paths_batch``
         rebuilds every level from the one below alone; those levels are
         rebuilt once, after the last batch.  Returns the acceptance masks
-        bool[B, K]."""
+        bool[B, K], on the device with as_numpy=False."""
         arr = _as_batch_stack(values, self.device)
         b, _, k = arr.shape
         self._reserve(b * k)
@@ -984,10 +1031,9 @@ class IndexedMerkleTree:
         for d in range(cross, ad):
             self.levels[d + 1] = hashing.hash2_nodes(*_halves(self.levels[d]))
         GLOBAL_METRICS.record_hashes(_batches_hash_count(ad, k, b))
-        oks = torch.stack(oks).cpu().numpy() if oks else \
-            np.zeros((0, k), dtype=bool)
-        GLOBAL_METRICS.record_inserts(int(oks.sum()), b * k - int(oks.sum()))
-        return oks
+        oks = torch.stack(oks) if oks else torch.zeros(
+            (0, k), dtype=torch.bool, device=self.device)
+        return self._accepted(oks, as_numpy)
 
     # -- serialization -------------------------------------------------------
 

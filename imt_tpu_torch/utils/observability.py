@@ -1,15 +1,18 @@
-"""Structured logging + throughput counters.
+"""Structured logging, throughput counters and the profiler scope.
 
-Counterpart of the counters half of ``imt_tpu.utils.observability``
-(``log_event``, ``Metrics``, ``GLOBAL_METRICS``): key=value log lines and a
-tiny registry of hash/insert counters with derived rates.  The profiler
-scope (``trace``) is not ported yet.
+Counterpart of ``imt_tpu.utils.observability``: key=value log lines
+(``log_event``), a tiny registry of hash/insert counters with derived rates
+(``Metrics``, ``GLOBAL_METRICS``), and ``trace``, a named profiler range
+around a region that can also record a ``torch.profiler`` trace of it.
 """
 
 from __future__ import annotations
 
+import itertools
 import logging
+import os
 import time
+from contextlib import contextmanager
 from dataclasses import dataclass, field
 
 logger = logging.getLogger("imt_tpu_torch")
@@ -42,6 +45,8 @@ class Metrics:
         self.inserts_rejected += rejected
 
     def record_submitted(self, n: int) -> None:
+        """Inserts dispatched whose acceptance stays on the device
+        (as_numpy=False): counted without waiting for the device."""
         self.inserts_submitted += n
 
     def record_queries(self, n: int) -> None:
@@ -69,3 +74,40 @@ class Metrics:
 
 
 GLOBAL_METRICS = Metrics()
+
+_trace_files = itertools.count()
+
+
+@contextmanager
+def trace(label: str, trace_dir: str | None = None):
+    """Profiling scope (``imt_tpu`` :78-100).  The region is always a named
+    ``torch.profiler.record_function`` range and a ``trace`` log line with
+    its wall seconds: cheap enough to leave on around batch loops.  With
+    `trace_dir` set (or IMT_TRACE_DIR in the environment) it also runs a
+    ``torch.profiler.profile`` over the region, with CUDA activity when a
+    card is present (the card is synchronised before the profile stops, so
+    the region's kernels are in it), and exports a Chrome trace,
+    ``<label>.<pid>.<n>.json``, into that directory (Perfetto or
+    chrome://tracing read it)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    td = trace_dir or os.environ.get("IMT_TRACE_DIR")
+    t0 = time.time()
+    if td:
+        cuda = torch.cuda.is_available()
+        activities = [ProfilerActivity.CPU] + (
+            [ProfilerActivity.CUDA] if cuda else [])
+        os.makedirs(td, exist_ok=True)
+        with profile(activities=activities) as prof:
+            with record_function(label):
+                yield
+            if cuda:
+                torch.cuda.synchronize()
+        prof.export_chrome_trace(os.path.join(
+            td, f"{label}.{os.getpid()}.{next(_trace_files)}.json"))
+    else:
+        with record_function(label):
+            yield
+    log_event("trace", label=label, wall_s=round(time.time() - t0, 6),
+              profile_dir=td or "-")

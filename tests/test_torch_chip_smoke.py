@@ -1,7 +1,9 @@
 """chip_smoke.py without a card (CPU): its depth-6 oracle replay and golden
-path on CPU tensors, phase 6's host-side checkers on small inputs, its
-kernel record and SASS census, and its refusal to run without CUDA or
-outside a checkout."""
+path on CPU tensors, phase 6's host-side checkers and phase 7's (the
+resume's launch expectations, the group's set semantics, the trace's
+kernel events, the plain version in chunks) on small inputs, its kernel
+record and SASS census, and its refusal to run without CUDA or outside a
+checkout."""
 
 import os
 import shutil
@@ -44,9 +46,9 @@ def test_kernel_record_names_the_replaced_code():
     smoke = _smoke_module()
     bodies = list(vpu_roofline.BODIES)
     names = list(smoke.POSEIDON) + bodies
-    launches = {p: dict.fromkeys(names, 1)
-                for p in ("insert_batch", "sequential", "sparse_batches",
-                          "witness_batch", "probe")}
+    paths = ("insert_batch", "sequential", "sparse_batches", "witness_batch",
+             "resume", "watchdog_group", "drill")
+    launches = {p: dict.fromkeys(names, 1) for p in paths + ("probe",)}
     numbers = {"times": dict.fromkeys(names, (1.0, 2.0)),
                "bounds": dict.fromkeys(names, (0.5, "operations")),
                "probe_launches": dict.fromkeys(bodies, 1)}
@@ -65,10 +67,9 @@ def test_kernel_record_names_the_replaced_code():
         with open(os.path.join(ROOT, path)) as f:
             assert f.readlines()[int(line) - 1].lstrip().startswith("def "), e
     launched = {e["name"]: e["launches"] for e in rec["kernels"]}
-    assert launched["hash3_leaf"] == 4 and launched["limbs_to_nodes"] == 1
-    assert launched["nodes_to_limbs"] == 3
-    assert set(rec["kernels"][0]["paths"]) == {
-        "insert_batch", "sequential", "sparse_batches", "witness_batch"}
+    assert launched["hash3_leaf"] == 7 and launched["limbs_to_nodes"] == 1
+    assert launched["nodes_to_limbs"] == 6
+    assert list(rec["kernels"][0]["paths"]) == list(paths)
     assert all(launched[b] == 1 for b in bodies)
 
 
@@ -272,6 +273,57 @@ def test_phase6_spine_fold_and_root_chain():
     w.new_root = torch.as_tensor(field.ints_to_limbs([2, 9, 4]))
     with pytest.raises(AssertionError, match="chain"):
         smoke.check_root_chain(field, w, 1, 4)
+
+
+def test_phase7_resume_launches_and_group_semantics():
+    """The resume of config 5 launches hash3 once and hash2 once per held
+    level, then the root read one hash2 per level above and one decode;
+    the group's set semantics count the values before it."""
+    import numpy as np
+    smoke = _smoke_module()
+    assert smoke.resume_launches(21, 32) == (
+        {"hash3_leaf": 1, "hash2_nodes": 21},
+        {"hash2_nodes": 11, "nodes_to_limbs": 1})
+    prior = field.ints_to_limbs([5, 7, 5, 0])
+    group = np.stack([field.ints_to_limbs([9, 5, 9]),
+                      field.ints_to_limbs([0, 11, 7])])
+    assert smoke.group_semantics(prior, group).tolist() == [
+        [True, False, False], [False, True, False]]
+    from types import SimpleNamespace
+    pc = SimpleNamespace(LAUNCHES={"hash2_nodes": 3, "hash3_leaf": 0,
+                                   "nodes_to_limbs": 1})
+    assert smoke.launched(pc) == {"hash2_nodes": 3, "nodes_to_limbs": 1}
+    assert smoke.launched(pc, {"hash2_nodes": 3}) == {"nodes_to_limbs": 1}
+
+
+def test_phase7_trace_kernels(tmp_path):
+    """Kernel events naming the hash2 kernel's symbol, in a Chrome trace
+    shaped as torch.profiler writes it; CPU ops of the same name do not
+    count."""
+    import json
+    smoke = _smoke_module()
+    path = tmp_path / "t.json"
+    path.write_text(json.dumps({"traceEvents": [
+        {"cat": "kernel", "name": "hash2_kernel(unsigned int const*)",
+         "dur": 5},
+        {"cat": "kernel", "name": "void at::native::sort()", "dur": 1},
+        {"cat": "cpu_op", "name": "hash2_kernel", "dur": 9},
+        {"ph": "M", "name": "process_name"}]}))
+    got = smoke.trace_kernels(str(path), smoke.HASH2_SYMBOL)
+    assert [e["dur"] for e in got] == [5]
+
+
+def test_phase3_plain_in_chunks_equals_one_call():
+    """The plain version over the lanes in chunks equals one call over the
+    whole width (phase 3's widest checks run it so)."""
+    from imt_tpu_torch.ops import poseidon
+    smoke = _smoke_module()
+    x = torch.as_tensor(field.random_limbs(3, 5))
+    y = torch.as_tensor(field.random_limbs(4, 5))
+    assert torch.equal(smoke.chunked(poseidon.limbs_to_nodes, (x,), 2),
+                       poseidon.limbs_to_nodes(x))
+    assert torch.equal(smoke.chunked(lambda a, b: a + b, (x, y), 3), x + y)
+    assert smoke.edge_values(field)[2:4] == [field.P - 1, field.P]
 
 
 def test_golden_path_matches_oracle_on_cpu():

@@ -24,14 +24,19 @@ MODULES = [
     "imt_tpu_torch.ops.vpu_roofline_cuda", "imt_tpu_torch.tree.merkle",
     "imt_tpu_torch.tree.indexed", "imt_tpu_torch.tree.batch_witness",
     "imt_tpu_torch.tree.sparse", "imt_tpu_torch.tree.reference_oracle",
-    "imt_tpu_torch.utils.observability",
+    "imt_tpu_torch.utils.observability", "imt_tpu_torch.utils.checkpoint",
+    "imt_tpu_torch.utils.health", "imt_tpu_torch.utils.config",
 ]
+TOOLS = ["tools/soak_indexed_torch.py"]
 
 
 def test_import_leaves_jax_and_imt_tpu_out():
     code = (
-        "import importlib, sys\n"
+        "import importlib, importlib.util, sys\n"
         f"for m in {MODULES!r}: importlib.import_module(m)\n"
+        f"for p in {TOOLS!r}:\n"
+        "    s = importlib.util.spec_from_file_location('tool', p)\n"
+        "    s.loader.exec_module(importlib.util.module_from_spec(s))\n"
         "import imt_tpu_torch\n"
         "t = imt_tpu_torch.IndexedMerkleTree(2, device='cpu')\n"
         "s = imt_tpu_torch.SparseIndexedMerkleTree(2, device='cpu')\n"
@@ -48,11 +53,13 @@ def test_import_leaves_jax_and_imt_tpu_out():
 def test_sources_never_import_jax_or_imt_tpu():
     pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|imt_tpu)(\.|\s|$)",
                      re.M)
+    paths = [os.path.join(ROOT, p) for p in TOOLS + ["chip_smoke.py"]]
     for dirpath, _, files in os.walk(PKG):
-        for f in files:
-            if f.endswith(".py"):
-                with open(os.path.join(dirpath, f)) as fh:
-                    assert not pat.search(fh.read()), f
+        paths += [os.path.join(dirpath, f) for f in files
+                  if f.endswith(".py")]
+    for path in paths:
+        with open(path) as fh:
+            assert not pat.search(fh.read()), path
 
 
 def _cpu_args():

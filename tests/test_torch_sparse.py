@@ -1,13 +1,15 @@
 """imt_tpu_torch's SparseIndexedMerkleTree (CPU).
 
-Mirrors tests/test_sparse.py (its checkpoint half is not ported): the
+Mirrors tests/test_sparse.py: the
 sparse tree equals the dense tree of the same full depth through
 insert_seq, insert_batch(witness=True) and growth, field by field; a
 depth-32 root equals the python-int fold of the active prefix over the
 zero-subtree spine; proofs and non-inclusion witnesses are of the full
-depth; snapshots load across the two packages (imt_tpu loads the port's
-and hands back its own, which the port loads: one small imt_tpu program
-set, compiled once for the module); the entry point defaults to the card.
+depth; snapshots load across the two packages, as arrays and as
+checkpoint files, and both packages' health audits check the same slots
+of them (imt_tpu loads the port's and hands back its own, which the port
+loads: one small imt_tpu program set, compiled once for the module); the
+entry point defaults to the card.
 Batched and chained inserts are in test_torch_chained.py.  Tolerance:
 exact.
 """
@@ -17,11 +19,16 @@ import pytest
 import torch
 
 from imt_tpu.tree.sparse import SparseIndexedMerkleTree as JaxSparseTree
+from imt_tpu.utils import checkpoint as jax_checkpoint
+from imt_tpu.utils.health import TreeCorruption as JaxTreeCorruption
+from imt_tpu.utils.health import check_tree as jax_check_tree
 from imt_tpu_torch import IndexedMerkleTree, SparseIndexedMerkleTree
 from imt_tpu_torch.ops import field
 from imt_tpu_torch.ops.poseidon_ref import hash_fixed
 from imt_tpu_torch.ops.poseidon_spec import default_params
 from imt_tpu_torch.tree import indexed, merkle
+from imt_tpu_torch.utils import checkpoint
+from imt_tpu_torch.utils.health import TreeCorruption, check_tree
 
 torch.set_num_threads(1)
 
@@ -108,6 +115,54 @@ def test_snapshots_load_across_packages(loaded):
     for x, y in zip(_state(t), _state(back)):
         assert torch.equal(x, y)
     assert back._live == t._live == 5
+
+
+def test_checkpoint_files_load_across_packages(loaded, tmp_path):
+    """imt_tpu's checkpoint.load of the port's file gives the same root and
+    arrays; the port's load of imt_tpu's file the same state and levels."""
+    t, jt, _, root = loaded
+    ours, theirs = str(tmp_path / "ours.npz"), str(tmp_path / "theirs.npz")
+    checkpoint.save(t, ours)
+    j = jax_checkpoint.load(ours)
+    assert isinstance(j, JaxSparseTree)
+    assert j.get_root_int() == field.limbs_to_int(root[:, 0])
+    a, b = t.to_arrays(), j.to_arrays()
+    assert a.keys() == b.keys()
+    for key in a:
+        assert np.array_equal(a[key], np.asarray(b[key])), key
+    jax_checkpoint.save(jt, theirs)
+    back = checkpoint.load(theirs, device=CPU)
+    assert isinstance(back, SparseIndexedMerkleTree)
+    assert back.count == t.count and back.active_depth == t.active_depth
+    for x, y in zip(_state(t), _state(back)):
+        assert torch.equal(x, y)
+
+
+def test_health_audits_agree_across_packages(loaded):
+    """Both packages' check_tree audit the same slots of the same state,
+    and both pass."""
+    _, jt, back, _ = loaded
+    want = jax_check_tree(jt, sample=8)
+    got = check_tree(back, sample=8)
+    assert got.checked_slots == want.checked_slots == [0, 1, 2, 3, 4]
+    assert got.ok and want.ok and got.failures == want.failures == []
+
+
+def test_health_audits_differ_on_a_rejected_insert(loaded):
+    """A rejected insert leaves its consumed slot an empty leaf: imt_tpu's
+    audit calls it 'empty' corruption, the port's passes it, and both fail
+    the same slot once it is zeroed and linked (same shapes as `loaded`,
+    so imt_tpu reuses its programs)."""
+    t = SparseIndexedMerkleTree(6, initial_capacity_log2=3, device=CPU)
+    assert t.insert_batch([30, 30, 10, 2 ** 200]).tolist() == [
+        True, False, True, True]
+    jt = JaxSparseTree.from_arrays(t.to_arrays())
+    with pytest.raises(JaxTreeCorruption, match="2, 'empty'"):
+        jax_check_tree(jt, sample=8)
+    assert check_tree(t, sample=8).checked_slots == [0, 1, 2, 3, 4]
+    t.next_idxs[:, 0] = torch.as_tensor(field.int_to_limbs(2))
+    with pytest.raises(TreeCorruption, match="2, 'empty'"):
+        check_tree(t, sample=8)
 
 
 def test_proof_api_symmetry(loaded):
