@@ -57,6 +57,20 @@ raises and the exit code is not 0:
    the kill-resume drill on the card (a worker SIGKILLed after its third
    checkpoint, resumed to an uninterrupted worker's root and count), and
    tools/soak_indexed_torch.py's 12 rounds on the card;
+8. the sharded path (``imt_tpu_torch/parallel``).  8a: NCCL at world size
+   1 on the card: a ShardedIndexedMerkleTree at phase 4's shape takes the
+   plain step (no shard-local program runs) to phase 4's root, and
+   sharded_tree_root over NCCL equals MerkleTree.build.  8b: four gloo
+   ranks sharing the card (a correctness run of the sharded code on the
+   real kernels, its collectives through the host, not a multi-GPU rate):
+   config 5's stream, regenerated in each rank from phase 6's seed,
+   through insert_batches on a depth-32 tree sharded 2^19 slots per rank
+   (ok masks and root equal phase 6's, bit for bit), a K = 4096 witness
+   batch and 4096 non-inclusion witnesses equal a single-device twin's,
+   sharded_tree_root of 2^20 leaves, a sharded checkpoint's round trip,
+   and the candidate exchange's bytes per call equal at depth 32 and at
+   depth 24 (the byte audit on the card); each rank's launches and bytes
+   per call are printed;
 5. numbers: depth-24 inserts/s (batched and sequential), non-inclusion
    witnesses/s, phase 6's sparse chained inserts/s and witness-batch
    inserts/s, the probe's rates per body (its own path), and each
@@ -65,7 +79,7 @@ raises and the exit code is not 0:
    core) against permute_n(st, 2) (the dense core) at widths 2, 8192 and
    2^17.
 
-Phases 6 and 7 run before phase 5, which prints its numbers.  The line
+Phases 6, 7 and 8 run before phase 5, which prints its numbers.  The line
 before the last is the kernels' JSON record (the paths' kernels, each with
 its launches per path, then the entry point no path runs); the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits non-zero and
@@ -104,12 +118,19 @@ SEED = 20260601
 # dense depth-24 twin, and config 3w's (depth 16, witness batches of 4096)
 C5_DEPTH, C5_CAPACITY, C5_K, C5_BATCHES, C5_GROUP = 32, 21, 65536, 16, 8
 C5_DENSE_DEPTH = 24
+# phase 8: the sharded path, 4 gloo ranks on the one card (a witness batch,
+# half-present queries, the leaves of sharded_tree_root, the audit's dense
+# depth), each rank and the join under one timeout (s)
+SHARD_RANKS, SHARD_TIMEOUT = 4, 600
+S_W_K, S_Q, S_ROOT_LEAVES, S_AUDIT_DEPTH = 4096, 4096, 1 << 20, 24
 W_DEPTH, W_K, W_BATCHES, W_SEQ = 16, 4096, 8, 256
 # phase 3: config 5's (hash3 over 2 * C5_K leaves, hash2 over the C5_K low
-# leaves), a ragged width, the batched and witness paths' (2K, K), the
-# sequential one's (2)
-PHASE3_WIDTHS = (2 * C5_K, RAGGED, C5_K, 2 * K, K, K // 2 + 1, 129,
-                 SEQ_WIDTH, 1)
+# leaves), its sharded path's on each of 4 ranks (hash3 over 2 * C5_K / 4
+# leaves, hash2 over the first slab window and the C5_K rewrite lanes), a
+# ragged width, the batched and witness paths' (2K, K), the sequential
+# one's (2)
+PHASE3_WIDTHS = (2 * C5_K, C5_K + C5_K // 2 + 1, RAGGED, C5_K, C5_K // 2,
+                 2 * K, K, K // 2 + 1, 129, SEQ_WIDTH, 1)
 # phase 3, the resume's own widths (phase 7): its rebuild runs hash3 over
 # every held slot of config 5 and hash2 over the level above.  The plain
 # version runs over them in calls of PLAIN_CHUNK lanes (lanes are
@@ -144,13 +165,15 @@ ROOFLINE_SOURCE = "imt_tpu_torch/ops/csrc/vpu_roofline.cu"
 POSEIDON = {
     "hash3_leaf": ("imt_tpu/ops/poseidon_rns_pallas.py:1240",
                    ("insert_batch", "sequential", "sparse_batches",
-                    "witness_batch", "resume", "watchdog_group", "drill")),
+                    "witness_batch", "resume", "watchdog_group", "drill",
+                    "sharded_nccl1", "sharded")),
     "hash2_nodes": ("imt_tpu/ops/poseidon_rns_pallas.py:1240",
                     ("insert_batch", "sequential", "sparse_batches",
-                     "witness_batch", "resume", "watchdog_group", "drill")),
+                     "witness_batch", "resume", "watchdog_group", "drill",
+                     "sharded_nccl1", "sharded")),
     "nodes_to_limbs": ("imt_tpu/ops/field_rns.py:262",
                        ("insert_batch", "sequential", "witness_batch",
-                        "resume", "watchdog_group", "drill")),
+                        "resume", "watchdog_group", "drill", "sharded")),
     "limbs_to_nodes": ("imt_tpu/ops/field_rns.py:249", ("sequential",)),
     "permute_n": ("imt_tpu/ops/poseidon_rns_pallas.py:1199", ()),
 }
@@ -603,16 +626,23 @@ def full_rebuild_root(field, indexed, tree) -> int:
     return field.limbs_to_int(hashing.dec_nodes(full[-1])[:, 0].cpu())
 
 
+def planted_stream(field, seed: int, n: int, k: int) -> list:
+    """n batches [16, k] of random values with planted duplicates, zeros
+    and earlier-batch duplicates, from `seed`: phase 4's stream (SEED + 1)
+    and config 5's (SEED + 6), which phase 8's ranks regenerate."""
+    rng = np.random.default_rng(seed)
+    batches, prev = [], None
+    for _ in range(n):
+        prev = plant(rng, field.random_limbs(int(rng.integers(1 << 31)), k,
+                                             253), prev)
+        batches.append(prev)
+    return batches
+
+
 def phase_slice(torch, pc, field, indexed, reference_oracle) -> dict:
-    rng = np.random.default_rng(SEED + 1)
     dev = torch.device("cuda")
     tree = indexed.IndexedMerkleTree(DEPTH)
-    batches, prev = [], None
-    for _ in range(N_BATCHES):
-        b = plant(rng, field.random_limbs(int(rng.integers(1 << 31)), K, 253),
-                  prev)
-        batches.append(b)
-        prev = b
+    batches = planted_stream(field, SEED + 1, N_BATCHES, K)
     torch.cuda.synchronize()
 
     seen: set = set()
@@ -663,7 +693,7 @@ def phase_slice(torch, pc, field, indexed, reference_oracle) -> dict:
     print("phase 4: depth-6 replay (3 batches of K=8 with duplicates, zeros, "
           "chains) matches the python-int oracle after every batch")
     return {"launches": launches, "batch_s": times, "tree": tree,
-            "seen": seen}
+            "seen": seen, "root": root}
 
 
 def check_launched(path: str, launches: dict) -> None:
@@ -953,13 +983,7 @@ def phase_sparse(torch, pc, field, indexed, sparse, checkpoint, dev,
     """Config 5's shape: a depth-32 sparse tree with 2^21 slots held, 16
     batches of K = 65536 through insert_batches in groups of 8; the tree
     is then checkpointed into `snap_dir` for phase 7."""
-    rng = np.random.default_rng(SEED + 6)
-    batches, prev = [], None
-    for _ in range(C5_BATCHES):
-        b = plant(rng, field.random_limbs(int(rng.integers(1 << 31)), C5_K,
-                                          253), prev)
-        batches.append(b)
-        prev = b
+    batches = planted_stream(field, SEED + 6, C5_BATCHES, C5_K)
     groups = [np.stack(batches[i:i + C5_GROUP])
               for i in range(0, C5_BATCHES, C5_GROUP)]
     tree = sparse.SparseIndexedMerkleTree(
@@ -1034,7 +1058,7 @@ def phase_sparse(torch, pc, field, indexed, sparse, checkpoint, dev,
           f"{3 * 16 * 4 << C5_CAPACITY} bytes of limbs)")
     return {"launches": launches, "group_s": group_s, "snapshot": path,
             "root": root, "count": count, "save_s": save_s,
-            "stream": stream}
+            "stream": stream, "oks": got}
 
 
 def phase_witness(torch, pc, field, indexed, sparse, dev) -> dict:
@@ -1395,6 +1419,350 @@ def phase_operations(torch, pc, field, indexed, sparse_out: dict, dev,
     return {"launches": launches, **out}
 
 
+# -- phase 8: the sharded path ------------------------------------------------
+
+def _rank_main(rank: int, target: str, world: int, work_dir: str,
+               timeout: float, kwargs: dict) -> None:
+    """One rank of ``start_ranks``: it joins the gloo group through a
+    file:// store in `work_dir` (no network) with the group timeout
+    `timeout`, runs the function `target` ("file.py:name") as
+    name(rank=, world=, **kwargs) and pickles what it returns into
+    `work_dir`."""
+    import datetime
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    path, name = target.rsplit(":", 1)
+    spec = importlib.util.spec_from_file_location("_rank_target", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    dist.init_process_group(
+        "gloo", init_method="file://" + os.path.join(work_dir, "store"),
+        world_size=world, rank=rank,
+        timeout=datetime.timedelta(seconds=timeout))
+    try:
+        out = getattr(mod, name)(rank=rank, world=world, **kwargs)
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(work_dir, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+class Ranks:
+    """The gloo ranks ``start_ranks`` started; ``wait`` collects."""
+
+    def __init__(self, context, work_dir: str, timeout: float):
+        self.context, self.work_dir, self.timeout = context, work_dir, timeout
+        self.deadline = time.monotonic() + timeout
+
+    def kill(self) -> None:
+        for p in self.context.processes:
+            if p.is_alive():
+                p.kill()
+            p.join()
+
+    def wait(self) -> list:
+        """What the target returned on ranks 0 .. world-1.  Ranks that
+        fail raise RuntimeError here, with the traceback of each failed
+        rank (the first to fail may not be the first seen); ranks still
+        running at the deadline raise TimeoutError; either way every rank
+        is stopped."""
+        import pickle
+
+        import torch.multiprocessing as mp
+        try:
+            while not self.context.join(
+                    max(self.deadline - time.monotonic(), 0)):
+                if time.monotonic() >= self.deadline:
+                    raise TimeoutError(f"the ranks ran past {self.timeout} s")
+        except (mp.ProcessRaisedException, mp.ProcessExitedException) as e:
+            self.kill()
+            errors = []
+            for rank, path in enumerate(self.context.error_files):
+                if os.path.exists(path):
+                    with open(path, "rb") as f:
+                        errors.append(f"rank {rank}: {pickle.load(f)}")
+            raise RuntimeError("ranks failed:\n" + "\n".join(errors)) from e
+        finally:
+            self.kill()
+        out = []
+        for rank in range(len(self.context.processes)):
+            with open(os.path.join(self.work_dir, f"rank{rank}.pkl"),
+                      "rb") as f:
+                out.append(pickle.load(f))
+        return out
+
+
+def start_ranks(target: str, world: int, kwargs: dict, work_dir: str,
+                timeout: float) -> Ranks:
+    """Start `world` gloo ranks of this host, SPMD, each a fresh process
+    (torch.multiprocessing's spawn) running ``_rank_main``, and return at
+    once: the caller may work meanwhile, then ``Ranks.wait``."""
+    import torch.multiprocessing as mp
+    os.makedirs(work_dir, exist_ok=True)
+    store = os.path.join(work_dir, "store")
+    if os.path.exists(store):
+        os.unlink(store)
+    context = mp.start_processes(
+        _rank_main, args=(target, world, work_dir, timeout, kwargs),
+        nprocs=world, join=False, start_method="spawn")
+    return Ranks(context, work_dir, timeout)
+
+
+def phase_nccl_one(torch, pc, field, slice_out: dict, dev, work_dir: str):
+    """8a: NCCL at world size 1 on the card.  A ShardedIndexedMerkleTree at
+    phase 4's shape takes the plain step (no shard-local program may run,
+    as tests/test_parallel.py:146 holds) and reaches phase 4's root; then
+    sharded_tree_root of 2^16 leaves over NCCL, device transport, equals
+    MerkleTree.build's root."""
+    import datetime
+    from unittest import mock
+
+    import torch.distributed as dist
+
+    from imt_tpu_torch.parallel import collectives, local_plan, sharded
+    from imt_tpu_torch.tree.merkle import MerkleTree
+    torch.cuda.set_device(dev)
+    dist.init_process_group(
+        "nccl", init_method="file://" + os.path.join(work_dir, "nccl_store"),
+        world_size=1, rank=0,
+        timeout=datetime.timedelta(seconds=SHARD_TIMEOUT))
+    try:
+        mesh = sharded.make_mesh(device_type="cuda")
+        transport = collectives.transport(mesh.get_group())
+        tree = sharded.ShardedIndexedMerkleTree(DEPTH, mesh, sparse=False,
+                                                device=dev)
+        batches = planted_stream(field, SEED + 1, N_BATCHES, K)
+        fail = mock.Mock(side_effect=AssertionError(
+            "the shard-local planner ran on a 1-device mesh"))
+        torch.cuda.synchronize()
+        pc.reset_launch_counts()
+        with mock.patch.multiple(local_plan, local_insert_batch=fail,
+                                 local_insert_batches=fail,
+                                 local_insert_batch_witness=fail,
+                                 local_non_inclusion_witness=fail):
+            for b in batches:
+                tree.insert_batch(b)
+        torch.cuda.synchronize()
+        launches = dict(pc.LAUNCHES)
+        check_launched("sharded_nccl1", launches)
+        if tree.is_sharded or tree.get_root_int() != slice_out["root"]:
+            raise AssertionError("8a: the 1-rank tree is sharded or its root "
+                                 "differs from phase 4's")
+        del tree
+        leaves = seeded_limbs(np.random.default_rng(SEED + 10),
+                              MERKLE_LEAVES, 253)
+        top = sharded.sharded_tree_root(leaves, mesh, device=dev)[1]
+        want = MerkleTree.build(leaves, dev).get_root_int()
+        if field.limbs_to_int(top[:, -1].cpu()) != want:
+            raise AssertionError("8a: sharded_tree_root over NCCL differs "
+                                 "from MerkleTree.build")
+        build_calls = list(collectives.CALLS["build"])
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    print(f"phase 8a: NCCL, world size 1, {transport} transport: a "
+          f"ShardedIndexedMerkleTree({DEPTH}) took the plain step for "
+          f"{N_BATCHES} batches of K={K} (no shard-local program ran) to "
+          f"phase 4's root; launches {launches}; sharded_tree_root of "
+          f"{MERKLE_LEAVES} leaves equals MerkleTree.build's root (NCCL "
+          f"calls {build_calls})")
+    return {"launches": launches}
+
+
+def exchange_sizes(calls: list) -> list:
+    """The bytes of each candidate exchange among a program's counted
+    calls [(what, bytes)], in order."""
+    return [b for what, b in calls if what == "candidates"]
+
+
+def audit_sizes(calls: dict) -> dict:
+    """Per program, what its calls carried and their bytes per call
+    (sorted, distinct)."""
+    return {p: sorted(set(c)) for p, c in sorted(calls.items())}
+
+
+def sharded_rank(rank: int, world: int, snapshot: str, work_dir: str,
+                 oks6: np.ndarray, root6: int, device: str) -> dict:
+    """8b, one of four gloo ranks sharing cuda:0: config 5's stream
+    (regenerated from phase 6's seed) through insert_batches in groups of
+    8 on a depth-32 sparse tree holding 2^21 slots (2^19 per rank), then a
+    witness batch and non-inclusion witnesses held against a twin loaded
+    from phase 6's snapshot (rank 0), sharded_tree_root of 2^20 leaves, a
+    sharded checkpoint's round trip, and a dense depth-24 batch of the
+    same K whose candidate exchange must move what depth 32's does."""
+    import torch
+    import torch.distributed as dist
+
+    from imt_tpu_torch.ops import field
+    from imt_tpu_torch.ops import poseidon_cuda as pc
+    from imt_tpu_torch.parallel import collectives, sharded
+    from imt_tpu_torch.tree import indexed
+    from imt_tpu_torch.tree.merkle import MerkleTree
+    from imt_tpu_torch.utils import checkpoint
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    mesh = sharded.make_mesh(device_type=dev.type)
+    group = mesh.get_group()
+    out = {"transport": collectives.transport(group)}
+    batches = planted_stream(field, SEED + 6, C5_BATCHES, C5_K)
+    groups = [torch.as_tensor(np.stack(batches[i:i + C5_GROUP]), device=dev)
+              for i in range(0, C5_BATCHES, C5_GROUP)]
+    rng = np.random.default_rng(SEED + 11)
+    accepted = np.concatenate(batches, axis=1)[:, oks6]
+    wvals = plant(rng, field.random_limbs(int(rng.integers(1 << 31)), S_W_K,
+                                          253), accepted[:, :S_W_K])
+    queries = np.concatenate([accepted[:, rng.choice(
+        accepted.shape[1], S_Q // 2, replace=False)], field.random_limbs(
+        int(rng.integers(1 << 31)), S_Q // 2, 253)], axis=1)
+    tree = sharded.ShardedIndexedMerkleTree(
+        C5_DEPTH, mesh, sparse=True, initial_capacity_log2=C5_CAPACITY,
+        device=dev)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    sync()
+    dist.barrier(group)
+
+    # -- the main path, its launches counted from 0
+    collectives.reset_counts()
+    pc.reset_launch_counts()
+    t0 = time.perf_counter()
+    oks = []
+    for g in groups:
+        oks.append(tree.insert_batches(g))
+        out.setdefault("group_s", []).append(time.perf_counter() - t0)
+    dist.barrier(group)
+    out["groups_s"] = time.perf_counter() - t0
+    out["root"] = root = tree.get_root_int()
+    nw = tree.non_inclusion_witness(queries)
+    w = tree.insert_batch(wvals, witness=True)
+    sync()
+    out["launches"] = dict(pc.LAUNCHES)
+    out["calls"] = {p: list(c) for p, c in collectives.CALLS.items()}
+    out["path_s"] = time.perf_counter() - t0
+
+    got = np.concatenate([o.reshape(-1) for o in oks])
+    out["oks_equal"] = bool(np.array_equal(got, oks6))
+    if not out["oks_equal"] or root != root6:
+        raise AssertionError(f"rank {rank}: config 5's ok masks equal "
+                             f"phase 6's: {out['oks_equal']}; root "
+                             f"{root:#x}, phase 6's {root6:#x}")
+    check_insert_leaf(indexed, w)
+    out["w_accepted"] = int(w.ok.sum())
+    out["ni_ok"] = int(nw.ok.sum())
+    if rank == 0:
+        twin = checkpoint.load(snapshot, device=dev)
+        tnw = twin.non_inclusion_witness(queries)
+        tw = twin.insert_batch(wvals, witness=True)
+        for a, b, names in ((nw, tnw, indexed.NonInclusionWitness),
+                            (w, tw, indexed.InsertWitness)):
+            for name in names.__dataclass_fields__:
+                x, y = getattr(a, name), getattr(b, name)
+                x = x.cpu().numpy() if isinstance(x, torch.Tensor) else x
+                y = y.cpu().numpy() if isinstance(y, torch.Tensor) else y
+                if x.shape != y.shape or not np.array_equal(x, y):
+                    raise AssertionError(f"8b: {names.__name__}.{name} "
+                                         "differs from the twin's")
+        if twin.get_root_int() != tree.get_root_int():
+            raise AssertionError("8b: the twin's root differs")
+        del twin
+
+    leaves = seeded_limbs(np.random.default_rng(SEED + 12), S_ROOT_LEAVES,
+                          253)
+    top = sharded.sharded_tree_root(leaves, mesh, device=dev)[1]
+    out["root_leaves"] = field.limbs_to_int(top[:, -1].cpu())
+    if rank == 0 and out["root_leaves"] != MerkleTree.build(
+            leaves, dev).get_root_int():
+        raise AssertionError("8b: sharded_tree_root differs from "
+                             "MerkleTree.build")
+
+    path = os.path.join(work_dir, "sharded.npz")
+    t0 = time.perf_counter()
+    checkpoint.save(tree, path)
+    out["save_s"] = time.perf_counter() - t0
+    count, root = tree.count, tree.get_root_int()
+    del tree
+    t0 = time.perf_counter()
+    back = checkpoint.load(path, device=dev)
+    out["load_s"] = time.perf_counter() - t0
+    if (back.count, back.get_root_int(), back.is_sharded) != (
+            count, root, True):
+        raise AssertionError("8b: the sharded snapshot loads to another "
+                             "tree")
+    del back
+
+    # the audit on the card: a dense depth-24 tree, one batch of C5_K
+    dense = sharded.ShardedIndexedMerkleTree(S_AUDIT_DEPTH, mesh,
+                                             sparse=False, device=dev)
+    collectives.reset_counts()
+    dense.insert_batch(batches[0])
+    out["calls24"] = list(collectives.CALLS["insert_batch"])
+    return out
+
+
+def phase_sharded(torch, pc, field, sparse_out: dict, work_dir: str,
+                  dev) -> dict:
+    """8b: four gloo ranks on the one card (``sharded_rank``), each a
+    process of its own (``start_ranks``) with a group timeout, joined with
+    the same timeout; the kernels are built before any rank starts (phase
+    2)."""
+    t0 = time.perf_counter()
+    ranks = start_ranks(
+        f"{os.path.abspath(__file__)}:sharded_rank", SHARD_RANKS,
+        dict(snapshot=sparse_out["snapshot"], work_dir=work_dir,
+             oks6=sparse_out["oks"], root6=sparse_out["root"],
+             device=str(dev)),
+        os.path.join(work_dir, "ranks"), SHARD_TIMEOUT).wait()
+    wall = time.perf_counter() - t0
+    label = (f"{SHARD_RANKS} gloo ranks sharing one card, "
+             f"{ranks[0]['transport']} transport")
+    launches = {name: sum(r["launches"][name] for r in ranks)
+                for name in ranks[0]["launches"]}
+    for i, r in enumerate(ranks):
+        print(f"phase 8b: rank {i} ({label}): hash2 launches "
+              f"{r['launches']['hash2_nodes']}, hash3 "
+              f"{r['launches']['hash3_leaf']}; bytes per collective call "
+              f"{audit_sizes(r['calls'])}")
+        if min(r["launches"]["hash2_nodes"],
+               r["launches"]["hash3_leaf"]) == 0:
+            raise AssertionError(f"8b: rank {i} launched no hash2 or hash3")
+        e32 = exchange_sizes(r["calls"]["insert_batches"])
+        e24 = exchange_sizes(r["calls24"])
+        if not e32 or set(e32) != set(e24) or len(set(e32)) != 1:
+            raise AssertionError(f"8b: rank {i}'s candidate exchange moves "
+                                 f"{set(e32)} B per call at depth "
+                                 f"{C5_DEPTH}, {set(e24)} at "
+                                 f"{S_AUDIT_DEPTH}")
+    check_launched("sharded", launches)
+    r = ranks[0]
+    print(f"phase 8b: {label}: {C5_BATCHES} batches of K={C5_K} through "
+          f"insert_batches in groups of {C5_GROUP} (2^{C5_CAPACITY} slots "
+          f"held, 2^{C5_CAPACITY - 2} per rank): ok masks and root "
+          f"{r['root']:#x} equal phase 6's on every rank; groups done after "
+          f"{r['group_s']} s, {r['groups_s']} s with the barrier; the path "
+          f"(groups, {S_Q} queries half present, a K={S_W_K} witness batch) "
+          f"{r['path_s']} s; launches over the 4 ranks {launches}")
+    print(f"phase 8b: the K={S_W_K} witness batch ({r['w_accepted']} "
+          f"accepted) and the {S_Q} non-inclusion witnesses ({r['ni_ok']} "
+          "ok) equal a single-device twin's loaded from phase 6's snapshot, "
+          "field by field, every lane; every accepted lane passes "
+          "insert_leaf; the twin's root after the batch equals the sharded "
+          "tree's")
+    print(f"phase 8b: the candidate exchange moves "
+          f"{sorted(set(exchange_sizes(r['calls']['insert_batches'])))} B "
+          f"per call at depth {C5_DEPTH} and "
+          f"{sorted(set(exchange_sizes(r['calls24'])))} B at depth "
+          f"{S_AUDIT_DEPTH} (K={C5_K}, 4 ranks): the audit on the card; "
+          f"sharded_tree_root of {S_ROOT_LEAVES} leaves equals "
+          f"MerkleTree.build's; the sharded snapshot saved in "
+          f"{r['save_s']} s (rank 0 writes) and loaded onto the mesh in "
+          f"{r['load_s']} s to the same root and count; the phase's wall "
+          f"time {wall} s, process starts included")
+    return {"launches": launches, "wall_s": wall}
+
+
 # -- phase 5: numbers ---------------------------------------------------------
 
 def poseidon_bound_ms(name: str, width: int, imad_per_s: float):
@@ -1635,7 +2003,11 @@ def main() -> int:
         print(f"phase 6: done in {time.perf_counter() - t6:.1f} s")
         ops_out = phase_operations(torch, pc, field, indexed, sparse_out,
                                    dev, work_dir)
-    del sparse_out["stream"]
+        nccl_out = phase_nccl_one(torch, pc, field, slice_out,
+                                  torch.device("cuda", 0), work_dir)
+        shard_out = phase_sharded(torch, pc, field, sparse_out, work_dir,
+                                  torch.device("cuda", 0))
+    del sparse_out["stream"], sparse_out["oks"]
     numbers = phase_numbers(torch, pc, plain, vr, vc, indexed, field, card,
                             clock_mhz, slice_out, sparse_out, witness_out)
     launches = {"insert_batch": slice_out["launches"],
@@ -1643,6 +2015,8 @@ def main() -> int:
                 "sparse_batches": sparse_out["launches"],
                 "witness_batch": witness_out["launches"],
                 **ops_out["launches"],
+                "sharded_nccl1": nccl_out["launches"],
+                "sharded": shard_out["launches"],
                 "probe": numbers["probe_launches"]}
 
     print(card)

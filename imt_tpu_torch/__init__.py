@@ -7,7 +7,8 @@ names mirror ``imt_tpu``'s.  This package imports neither ``jax`` nor
 ``imt_tpu``.  Its entry points run on the card: a tree, a Merkle tree and
 the probe take ``device``, default "cuda", and run on the CPU only when the
 caller passes ``device="cpu"``; functions that take tensors run where their
-tensors live.
+tensors live.  ``ShardedIndexedMerkleTree`` (``parallel/``) spreads one tree
+over the ranks of a ``torch.distributed`` mesh.
 """
 
 from .ops.field import P as FIELD_MODULUS
@@ -16,9 +17,11 @@ from .tree.indexed import (ZERO_LEAF_HASH, IndexedMerkleTree, InsertWitness,
                            verify_non_inclusion)
 from .tree.merkle import MerkleTree
 from .tree.sparse import SparseIndexedMerkleTree
+from .parallel.sharded import ShardedIndexedMerkleTree
 
 __version__ = "0.2.0"
 
 __all__ = ["FIELD_MODULUS", "ZERO_LEAF_HASH", "IndexedMerkleTree",
            "InsertWitness", "NonInclusionWitness", "MerkleTree",
-           "SparseIndexedMerkleTree", "insert_leaf", "verify_non_inclusion"]
+           "ShardedIndexedMerkleTree", "SparseIndexedMerkleTree",
+           "insert_leaf", "verify_non_inclusion"]

@@ -86,6 +86,17 @@ def _scatter_level(level: torch.Tensor, idx: torch.Tensor,
         keep, val, val.index_select(1, first))
 
 
+def _level_access(levels: list):
+    """The walk's (root, n, base, scatter) on one device's levels, in
+    place."""
+    def base(lvl, qnode):
+        return levels[lvl][:, qnode]
+
+    def scatter(lvl, idx, keep, val):
+        _scatter_level(levels[lvl], idx, keep, val)
+    return levels[-1], levels[0].shape[1], base, scatter
+
+
 def _merge_order(node: torch.Tensor, key2: torch.Tensor, kb: int):
     """The walk's per-level merge (``imt_tpu`` :141-155): rows sorted by
     (node, key2, row), with key2 < 2^kb, as one stable sort of the int64
@@ -96,9 +107,16 @@ def _merge_order(node: torch.Tensor, key2: torch.Tensor, kb: int):
 
 
 def _witness_walk(levels: list, l_path: torch.Tensor, n_path: torch.Tensor,
-                  s0: int, upd_val: torch.Tensor):
+                  s0: int, upd_val: torch.Tensor, access=None):
     """The level-synchronous walk (``imt_tpu`` ``_witness_walk``, :86), in
-    place on `levels`.  Insert i updates the node of its new slot (n_path,
+    place on `levels`; or, with `access` = (root, n, base, scatter), over a
+    tree of n = 2^depth slots whose levels it reaches through base(lvl,
+    qnode) (the nodes qnode of level lvl as they were before the batch)
+    and scatter(lvl, idx, keep, val) (val[:, i] written at idx[i] where
+    keep[i], the kept targets unique), with `root` [8, 1] the root level,
+    updated in place: the sharded tree reads its sharded levels from their
+    owners and writes them there (``parallel/local_plan.py``).  Insert i
+    updates the node of its new slot (n_path,
     the contiguous slab s0 .. s0+K-1) and of its low leaf (l_path) on each
     level; upd_val [8, 2K] holds the new slab nodes, then the new low-path
     nodes, of the level being walked.
@@ -115,8 +133,8 @@ def _witness_walk(levels: list, l_path: torch.Tensor, n_path: torch.Tensor,
     Returns (low_proof, new_proof [depth, 8, K], low_help, new_help
     int32[depth, K], old_root, new_root [8, K]): the proofs as nodes, the
     roots of the active prefix before and after each step."""
-    depth, k = len(levels) - 1, n_path.shape[0]
-    n = levels[0].shape[1]
+    root, n, base, scatter = access or _level_access(levels)
+    depth, k = n.bit_length() - 1, n_path.shape[0]
     dev = upd_val.device
     steps = torch.arange(k, device=dev)
     mm, tot = 2 * k, 3 * k                     # 2K queries; K updates first
@@ -130,7 +148,7 @@ def _witness_walk(levels: list, l_path: torch.Tensor, n_path: torch.Tensor,
     pos = torch.arange(tot, device=dev)
     low_proof, new_proof, low_help, new_help = [], [], [], []
     for lvl in range(depth):
-        level, width = levels[lvl], n >> lvl
+        width = n >> lvl
         vN, vL = upd_val[:, :k], upd_val[:, k:]
         qnode = torch.cat([l_path ^ 1, n_path ^ 1])
 
@@ -156,10 +174,10 @@ def _witness_walk(levels: list, l_path: torch.Tensor, n_path: torch.Tensor,
 
         # the later hit wins (ties carry equal values), else the level as
         # it was before the batch: read before this level is written below
-        base = level[:, qnode]
+        before = base(lvl, qnode)
         use_l = res_hit & (~n_hit | (res_idx >= jstar))
         res = torch.where(use_l, vL[:, res_idx],
-                          torch.where(n_hit, n_val, base))
+                          torch.where(n_hit, n_val, before))
         lsib_prev, nsib_prev = res[:, :k], res[:, k:]
 
         # this level after the batch: each node's last update wins
@@ -174,8 +192,8 @@ def _witness_walk(levels: list, l_path: torch.Tensor, n_path: torch.Tensor,
         is_lastn = steps == (((n_path + 1) << lvl) - 1 - s0).clamp(max=k - 1)
         claimed = _set_kept(width, -1, l_path, l_wins, steps)
         n_wins = is_lastn & (claimed[n_path.clamp(0, width - 1)] < steps)
-        _scatter_level(level, torch.cat([n_path, l_path]),
-                       torch.cat([n_wins, l_wins]), upd_val)
+        scatter(lvl, torch.cat([n_path, l_path]),
+                torch.cat([n_wins, l_wins]), upd_val)
 
         # same-step siblings: the other path's update where it is the sibling
         lsib_t = torch.where(n_path == (l_path ^ 1), vN, lsib_prev)
@@ -195,8 +213,8 @@ def _witness_walk(levels: list, l_path: torch.Tensor, n_path: torch.Tensor,
     # the root series: step i's new root is its low-path update (the later
     # of the two rows), its old root the previous step's new root
     new_root = upd_val[:, k:]
-    old_root = torch.cat([levels[depth], new_root[:, :k - 1]], dim=1)
-    levels[depth].copy_(new_root[:, k - 1:])
+    old_root = torch.cat([root, new_root[:, :k - 1]], dim=1)
+    root.copy_(new_root[:, k - 1:])
     return (torch.stack(low_proof), torch.stack(new_proof),
             torch.stack(low_help), torch.stack(new_help), old_root,
             new_root.contiguous())

@@ -5,8 +5,10 @@ where the tree lives and its hashes run (the card unless the caller asks
 for "cpu").  ``hash_engine`` and ``pallas_layout`` choose among
 ``imt_tpu``'s TPU engines and kernel layouts; the port has one engine per
 device (the plain torch version on the CPU, the CUDA kernel on the card),
-so both accept only "auto".  ``mesh_devices`` other than 0 asks for the
-multi-GPU tree, which is not ported yet.
+so both accept only "auto".  ``mesh_devices`` None (the whole world) or
+N >= 2 (a mesh of N ranks, the first N for rank 0) builds the multi-GPU
+``ShardedIndexedMerkleTree`` on a mesh with the dim ``mesh_axis``; every
+rank of the world calls ``build_tree``.
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ class EngineConfig:
     # sparse-prefix storage: None = auto (depth > 20)
     sparse: bool | None = None
     initial_capacity_log2: int = 10
-    # mesh: 0 devices = single-device tree (the only kind ported)
+    # mesh: 0 devices = single-device tree; None = all ranks
     mesh_axis: str = "shard"
     mesh_devices: int | None = 0
     # fail-fast witness re-verification (tree.indexed.set_debug_witness)
@@ -67,11 +69,17 @@ class EngineConfig:
     def build_tree(self):
         """apply() + construct the tree this config describes on `device`:
         dense, or sparse-prefix when `sparse` says so (by default when the
-        depth exceeds 20)."""
+        depth exceeds 20); mesh-sharded when mesh_devices is None (all
+        ranks) or >= 2, on the rank's own card for device "cuda"."""
         self.apply()
-        if self.mesh_devices != 0:
-            from .checkpoint import NO_MESH
-            raise NotImplementedError(NO_MESH)
+        if self.mesh_devices is None or self.mesh_devices >= 2:
+            from ..parallel.sharded import ShardedIndexedMerkleTree, make_mesh
+            return ShardedIndexedMerkleTree(
+                self.tree_depth, mesh=make_mesh(self.mesh_devices,
+                                                axis=self.mesh_axis),
+                sparse=self.sparse,
+                initial_capacity_log2=self.initial_capacity_log2,
+                device=self.device)
         sparse = self.sparse if self.sparse is not None else \
             self.tree_depth > 20
         if sparse:

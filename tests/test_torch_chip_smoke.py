@@ -47,7 +47,7 @@ def test_kernel_record_names_the_replaced_code():
     bodies = list(vpu_roofline.BODIES)
     names = list(smoke.POSEIDON) + bodies
     paths = ("insert_batch", "sequential", "sparse_batches", "witness_batch",
-             "resume", "watchdog_group", "drill")
+             "resume", "watchdog_group", "drill", "sharded_nccl1", "sharded")
     launches = {p: dict.fromkeys(names, 1) for p in paths + ("probe",)}
     numbers = {"times": dict.fromkeys(names, (1.0, 2.0)),
                "bounds": dict.fromkeys(names, (0.5, "operations")),
@@ -67,8 +67,8 @@ def test_kernel_record_names_the_replaced_code():
         with open(os.path.join(ROOT, path)) as f:
             assert f.readlines()[int(line) - 1].lstrip().startswith("def "), e
     launched = {e["name"]: e["launches"] for e in rec["kernels"]}
-    assert launched["hash3_leaf"] == 7 and launched["limbs_to_nodes"] == 1
-    assert launched["nodes_to_limbs"] == 6
+    assert launched["hash3_leaf"] == 9 and launched["limbs_to_nodes"] == 1
+    assert launched["nodes_to_limbs"] == 7
     assert list(rec["kernels"][0]["paths"]) == list(paths)
     assert all(launched[b] == 1 for b in bodies)
 
@@ -250,6 +250,45 @@ def test_phase6_set_semantics_and_list_walk():
             smoke.list_walk(*args)
 
 
+@pytest.mark.parametrize("seed_offset,n,k", [(6, 16, 65536), (1, 4, 4096)])
+def test_phase8_regenerates_the_planted_streams(seed_offset, n, k):
+    """Phase 8's ranks regenerate config 5's stream (phase 6's seed, 16 x
+    65536) and phase 4's (4 x 4096) with planted_stream: the same batches
+    as the loop phases 4 and 6 ran inline, planting included (16 zeros and
+    32 intra-batch duplicates a batch, 16 values of the batch before)."""
+    import numpy as np
+    smoke = _smoke_module()
+    rng = np.random.default_rng(smoke.SEED + seed_offset)
+    want, prev = [], None
+    for _ in range(n):
+        b = smoke.plant(rng, field.random_limbs(int(rng.integers(1 << 31)),
+                                                k, 253), prev)
+        want.append(b)
+        prev = b
+    got = smoke.planted_stream(field, smoke.SEED + seed_offset, n, k)
+    assert len(got) == n
+    assert all(np.array_equal(a, b) for a, b in zip(got, want))
+    assert all(int((~b.any(axis=0)).sum()) == 16 for b in got)
+    first = set(map(tuple, got[0].T.tolist()))
+    assert sum(tuple(c) in first for c in got[1].T.tolist()) >= 16
+
+
+def test_phase8_byte_audit_comparison():
+    """exchange_sizes picks the candidate exchanges out of a program's
+    counted calls; audit_sizes lists each program's distinct calls."""
+    smoke = _smoke_module()
+    chain = [("candidates", 144), ("leaf_hashes", 64), ("candidates", 144),
+             ("leaf_hashes", 64), ("roots", 128)]
+    one = [("candidates", 144), ("leaf_hashes", 64), ("roots", 128)]
+    assert smoke.exchange_sizes(chain) == [144, 144]
+    assert set(smoke.exchange_sizes(chain)) == set(smoke.exchange_sizes(one))
+    leaky = [("all_gather", 4096)] + one
+    assert smoke.exchange_sizes(leaky) == [144]
+    assert smoke.audit_sizes({"insert_batches": chain, "read": []}) == {
+        "insert_batches": [("candidates", 144), ("leaf_hashes", 64),
+                           ("roots", 128)], "read": []}
+
+
 def test_phase6_spine_fold_and_root_chain():
     """fold_int folds a prefix root over the python-int zero roots, as the
     tree's own spine does; root_int decodes a kept prefix root as
@@ -345,3 +384,37 @@ def test_exits_nonzero_outside_a_checkout(tmp_path):
     out = _run(tmp_path, str(tmp_path / "chip_smoke.py"))
     assert out.returncode != 0
     assert out.stdout == ""
+
+
+def test_a_failing_rank_fails_the_run(tmp_path, monkeypatch):
+    """start_ranks: a rank that raises stops the others, and the parent
+    raises with its traceback."""
+    monkeypatch.syspath_prepend(ROOT)
+    target = tmp_path / "t.py"
+    target.write_text(
+        "def main(rank, world):\n"
+        "    if rank == 1:\n"
+        "        raise ValueError('rank one refuses')\n"
+        "    import torch, torch.distributed as dist\n"
+        "    dist.barrier()\n")
+    ranks = _smoke_module().start_ranks(f"{target}:main", 2, {},
+                                        str(tmp_path / "w"), timeout=60.0)
+    with pytest.raises(RuntimeError, match="rank one refuses"):
+        ranks.wait()
+    assert not any(p.is_alive() for p in ranks.context.processes)
+
+
+def test_a_hanging_rank_times_out(tmp_path, monkeypatch):
+    """start_ranks: ranks still running at the deadline raise TimeoutError
+    and are stopped."""
+    monkeypatch.syspath_prepend(ROOT)
+    target = tmp_path / "t.py"
+    target.write_text(
+        "import time\n"
+        "def main(rank, world):\n"
+        "    time.sleep(600)\n")
+    ranks = _smoke_module().start_ranks(f"{target}:main", 2, {},
+                                        str(tmp_path / "w"), timeout=8.0)
+    with pytest.raises(TimeoutError, match="ran past"):
+        ranks.wait()
+    assert not any(p.is_alive() for p in ranks.context.processes)

@@ -26,6 +26,9 @@ MODULES = [
     "imt_tpu_torch.tree.sparse", "imt_tpu_torch.tree.reference_oracle",
     "imt_tpu_torch.utils.observability", "imt_tpu_torch.utils.checkpoint",
     "imt_tpu_torch.utils.health", "imt_tpu_torch.utils.config",
+    "imt_tpu_torch.parallel", "imt_tpu_torch.parallel.collectives",
+    "imt_tpu_torch.parallel.local_plan", "imt_tpu_torch.parallel.sharded",
+    "imt_tpu_torch.parallel.collective_audit",
 ]
 TOOLS = ["tools/soak_indexed_torch.py"]
 
@@ -40,6 +43,27 @@ def test_import_leaves_jax_and_imt_tpu_out():
         "import imt_tpu_torch\n"
         "t = imt_tpu_torch.IndexedMerkleTree(2, device='cpu')\n"
         "s = imt_tpu_torch.SparseIndexedMerkleTree(2, device='cpu')\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'imt_tpu'))\n"
+        "print(repr(bad))\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, cwd=ROOT, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_parallel_leaves_jax_and_imt_tpu_out():
+    """imt_tpu_torch.parallel and the rank programs of its tests, which
+    the ranks load, import neither jax nor imt_tpu."""
+    ranks = os.path.join(ROOT, "tests", "_torch_parallel_ranks.py")
+    code = (
+        "import importlib, importlib.util, sys\n"
+        "for m in ('sharded', 'local_plan', 'collectives', "
+        "'collective_audit'):\n"
+        "    importlib.import_module('imt_tpu_torch.parallel.' + m)\n"
+        f"s = importlib.util.spec_from_file_location('r', {ranks!r})\n"
+        "s.loader.exec_module(importlib.util.module_from_spec(s))\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'imt_tpu'))\n"
         "print(repr(bad))\n")

@@ -106,14 +106,17 @@ def test_checkpoint_save_is_atomic(tmp_path):
 
 
 def test_checkpoint_refuses_a_sharded_snapshot(tmp_path):
+    """A sharded snapshot, or a plain one with mesh=, restores onto a mesh
+    (tests/test_torch_parallel.py): without a process group, or with a
+    mesh that is not a DeviceMesh, load refuses."""
     path = str(tmp_path / "sharded.npz")
     np.savez(path, sharded=np.int64(1),
              **IndexedMerkleTree(2, device=CPU).to_arrays())
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    with pytest.raises(RuntimeError, match="init_process_group"):
         checkpoint.load(path, device=CPU)
     plain = str(tmp_path / "plain.npz")
     checkpoint.save(IndexedMerkleTree(2, device=CPU), plain)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         checkpoint.load(plain, device=CPU, mesh=object())
 
 
@@ -140,8 +143,11 @@ def test_engine_config_rejects(bad, match):
 
 
 def test_engine_config_refuses_a_mesh():
+    """mesh_devices None or >= 2 builds the sharded tree
+    (tests/test_torch_parallel.py), which needs a process group: without
+    one, build_tree refuses."""
     for n in (None, 2):
-        with pytest.raises(NotImplementedError, match="multi-GPU"):
+        with pytest.raises(RuntimeError, match="init_process_group"):
             EngineConfig(mesh_devices=n, device=CPU).build_tree()
 
 
