@@ -11,15 +11,16 @@ raises and the exit code is not 0:
 
 1. device: CUDA present; the card's name, power limit and SM clock; the
    least multiply-adds per permutation that the bounds count, beside the
-   two cores' own;
-2. build: nvcc, with the build times, the ptxas register report, and the
-   SASS census of both Poseidon permutation cores, the dense one of
-   permute_kernel and the sparse one of the hash kernels (instructions per
-   permutation by opcode, the multiply-adds counted in the built library
-   against the source's count);
+   kernels' own;
+2. build: nvcc, with the build times, the ptxas register report (no spill
+   in K1 or the hash kernels), and the SASS census per permutation of K1
+   (permute_kernel) and of the hash kernels' sparse core (instructions by
+   opcode, the multiply-adds counted in the built library against the
+   source's count);
 3. Poseidon kernel vs plain, bit for bit, at a ragged width of 65537 lanes
    with edge values and at the main path's own widths (config 5's hash3
-   over 2^17 leaves, down to the sequential path's 2 and 1), hash3 at
+   over 2^17 leaves, down to the sequential path's 2 and 1; K1 with
+   n_perms 1 and 3), hash3 at
    2^21 and hash2 at 2^20 lanes (phase 7's rebuild), and the H(0,0,0) and
    poseidonperm_x5_254_3 anchors;
 3b. every probe body (``csrc/vpu_roofline.cu``) vs plain, bit for bit, at
@@ -75,9 +76,9 @@ raises and the exit code is not 0:
    witnesses/s, phase 6's sparse chained inserts/s and witness-batch
    inserts/s, the probe's rates per body (its own path), and each
    kernel's time beside its plain version's and its bound, the Poseidon
-   entry points also at a width that fills the card, and hash2 (the sparse
-   core) against permute_n(st, 2) (the dense core) at widths 2, 8192 and
-   2^17.
+   entry points also at a width that fills the card, and K1 per
+   permutation (n_perms 1 and 2, with both bounds' shares) against hash2
+   per permutation at widths 2, 8192, 66560 and 2^17.
 
 Phases 6, 7 and 8 run before phase 5, which prints its numbers.  The line
 before the last is the kernels' JSON record (the paths' kernels, each with
@@ -106,6 +107,7 @@ RAGGED = 65537
 TIMING_WIDTH = 8192
 SEQ_WIDTH = 2                 # a sequential insert's hash2 launches
 FILL_WIDTH = 1 << 17          # 132 SMs x ~8 blocks of 128 lanes
+BENCH_WIDTH = 66560           # bench.py's perms/s batch (bench.py:36-41)
 SEQ_VALUES = 64
 QUERIES = 4096
 MERKLE_LEAVES = 1 << 16
@@ -139,6 +141,9 @@ PHASE3_WIDTHS = (2 * C5_K, C5_K + C5_K // 2 + 1, RAGGED, C5_K, C5_K // 2,
 PHASE3_WIDE = (("hash3_leaf", 1 << C5_CAPACITY),
                ("hash2_nodes", 1 << (C5_CAPACITY - 1)))
 PLAIN_CHUNK = 1 << 18
+# phase 3: K1's chain lengths (an odd one catches a state carried
+# unreduced from one permutation to the next)
+K1_CHAINS = (1, 3)
 # phase 7: the watchdog's cadence and sample, the follow-up calls that
 # complete its cadence, and the kill-resume drill on the card (a depth-32
 # tree that grows from 2^10 slots to 2^16 inside the run)
@@ -180,13 +185,10 @@ POSEIDON = {
 ROOFLINE_REPLACES = "tools/vpu_roofline.py:83"
 
 # What the port's kernels execute, counted from the source and held against
-# their SASS in phase 2.  The dense core (permute_kernel): a permutation is
-# 828 Montgomery products (8 full rounds x 18, 57 partial x 12), each 128
-# wide (32x32->64-bit) multiply-adds and 8 32-bit ones (mont_mul).  The
-# sparse core (hash2_kernel, hash3_kernel): 600 products (8 full rounds x
-# 18, 57 partial x 8), of the same 128 wide and 8 32-bit multiply-adds
-# (mont_mul_cc: each row's 8 products as 64-bit multiply-adds).
-MONT_PER_PERM = 828
+# their SASS in phase 2.  The sparse core (permute_sparse: hash2_kernel,
+# hash3_kernel): a permutation is 600 Montgomery products (8 full rounds x
+# 18, 57 partial x 8), each 128 wide (32x32->64-bit) multiply-adds and 8
+# 32-bit ones (mont_mul_cc: each row's 8 products as 64-bit multiply-adds).
 SPARSE_MONT_PER_PERM = 600
 ADDRESSING = 16    # wide multiplies a lane may spend on its addresses
 WIDE_PER_MONT, NARROW_PER_MONT = 128, 8
@@ -201,6 +203,21 @@ WIDE_PER_MONT, NARROW_PER_MONT = 128, 8
 # imt_tpu/ops/poseidon_opt.py:160) at the refresh period that needs least.
 R_F, R_P = 8, 57
 PRODUCT, SQUARE, REDC_WIDE, REDC_NARROW = 64, 36, 64, 8
+
+
+# K1's core (permute_lazy, chained n_perms times in permute_kernel): the
+# sparse core's schedule with the least-work arithmetic.  Each dot is
+# reduced once (mont_dot3: three products' rows, one reduction row per
+# row: 256 wide and 8 32-bit multiply-adds) and each square takes its 36
+# products (mont_sqr: 100 wide, 8 32-bit).  An S-box is two squares and a
+# product; a full round is three S-boxes and three dots, a partial round
+# one S-box, one dot and two products.
+K1_DOTS = R_F * 3 + R_P
+K1_SQUARES = 2 * K1_DOTS
+K1_MONT = K1_DOTS + 2 * R_P
+K1_WORK = (K1_MONT * WIDE_PER_MONT + K1_SQUARES * (SQUARE + REDC_WIDE)
+           + K1_DOTS * (3 * PRODUCT + REDC_WIDE),
+           (K1_MONT + K1_SQUARES + K1_DOTS) * REDC_NARROW)
 
 
 def least_perm_work(g: int) -> tuple:
@@ -293,38 +310,44 @@ def _count(ins, a: int, b: int) -> dict:
     return c
 
 
-def sass_census(sass: str) -> dict:
-    """Instructions per permutation in permute_kernel's SASS (the dense
-    core): the round loop (the innermost backward branch) runs 65 times,
-    and the block its one forward branch skips runs on the 8 full rounds
-    (or, were the branch the other way round, the 57 partial ones: the trip
-    count that makes the wide multiplies come out at 828 products' worth is
-    taken, and if neither does, the census fails).  Returns counts by
-    opcode."""
+def k1_census(sass: str) -> dict:
+    """Instructions per permutation of K1, from permute_kernel's SASS.  The
+    kernel chains its n_perms permutations in one loop, whose body is one
+    permutation of K1's core: a loop of 3 leading full rounds, the last
+    leading round, a loop of 57 partial rounds and a loop of 4 trailing
+    full rounds.  The perms loop's code outside the round loops counts
+    once, each round loop's body its trips.  The wide multiplies
+    (IMAD.WIDE.U32 and IMAD.HI.U32) must lie between the source's count
+    (K1_WORK; its squares leave the compiler nothing to share) and that
+    count plus a lane's addressing, and the 32-bit products (m of each
+    reduction row) must all be there.  Returns counts by opcode."""
     ins = kernel_instructions(sass, "permute_kernel")
-    branches = _branches(ins)
-    loops = sorted((a - t, t, a) for a, t in branches if t < a)
-    if not loops:
-        raise AssertionError("no loop in permute_kernel's SASS")
-    _, lo, hi = loops[0]
-    skips = [(a, t) for a, t in branches if lo <= a < t <= hi]
-    if len(skips) != 1:
-        raise AssertionError(f"expected one branch in the round loop, got "
-                             f"{len(skips)}")
-    s_lo, s_hi = skips[0][0] + 16, skips[0][1]
-
-    every, cond = _count(ins, lo, hi + 16), _count(ins, s_lo, s_hi)
-    for k in cond:
-        every[k] -= cond[k]
-    wide_want = MONT_PER_PERM * WIDE_PER_MONT
-    for cond_trips in (8, 57):
-        per = {k: 65 * every.get(k, 0) + cond_trips * cond.get(k, 0)
-               for k in set(every) | set(cond)}
-        wide = per.get("IMAD.WIDE.U32", 0) + per.get("IMAD.HI.U32", 0)
-        if wide == wide_want:
-            return per
-    raise AssertionError(f"SASS wide multiplies per permutation differ from "
-                         f"the source's {wide_want}")
+    loops = sorted((t, a) for a, t in _branches(ins) if t < a)
+    if len(loops) != 4:
+        raise AssertionError(f"expected 4 loops in permute_kernel's SASS, "
+                             f"got {len(loops)}")
+    lo, hi = max(loops, key=lambda ta: ta[1])
+    rounds = [ta for ta in loops if ta != (lo, hi)]
+    if not all(lo <= t and a < hi for t, a in rounds) or any(
+            rounds[i][1] >= rounds[i + 1][0] for i in range(2)):
+        raise AssertionError("permute_kernel's round loops are not three "
+                             "disjoint loops inside the perms loop")
+    backs = {a for _, a in loops}
+    if any(a not in backs and any(t <= a <= b for t, b in rounds)
+           for a, _ in _branches(ins)):
+        raise AssertionError("a branch inside a round loop of "
+                             "permute_kernel")
+    per = _count(ins, lo, hi + 16)
+    for (t, a), trips in zip(rounds, (R_F // 2 - 1, R_P, R_F // 2)):
+        for k, v in _count(ins, t, a + 16).items():
+            per[k] += (trips - 1) * v
+    wide = per.get("IMAD.WIDE.U32", 0) + per.get("IMAD.HI.U32", 0)
+    want, narrow = K1_WORK
+    if not want <= wide <= want + ADDRESSING or per.get("IMAD", 0) < narrow:
+        raise AssertionError(
+            f"K1: SASS wide multiplies {wide} and IMAD {per.get('IMAD', 0)} "
+            f"per permutation, against the source's {want} and {narrow}")
+    return per
 
 
 def sparse_census(sass: str) -> dict:
@@ -406,7 +429,7 @@ def ptxas_report(log: str) -> dict:
 
 
 # kernels whose ptxas report must show no spills
-NO_SPILLS = ("hash2_kernel", "hash3_kernel")
+NO_SPILLS = ("hash2_kernel", "hash3_kernel", "permute_kernel")
 
 
 def phase_build(_build) -> None:
@@ -427,27 +450,20 @@ def phase_build(_build) -> None:
     sass = subprocess.run(
         [cuobjdump, "-sass", _build.library_path("poseidon")],
         capture_output=True, text=True, timeout=300, check=True).stdout
-    per = sass_census(sass)
-    imad = sum(v for k, v in per.items() if k.startswith("IMAD"))
-    narrow = per.get("IMAD", 0)
-    if narrow < MONT_PER_PERM * NARROW_PER_MONT:
-        raise AssertionError(f"SASS 32-bit IMADs per permutation {narrow}, "
-                             f"fewer than the source's "
-                             f"{MONT_PER_PERM * NARROW_PER_MONT}")
+    per = k1_census(sass)
     top = sorted(per.items(), key=lambda kv: -kv[1])[:12]
-    print(f"phase 2: SASS census per permutation, dense core "
-          f"(permute_kernel): {sum(per.values())} instructions, {imad} of "
-          f"the IMAD family (IMAD.WIDE.U32 {per.get('IMAD.WIDE.U32', 0)} + "
-          f"IMAD.HI.U32 {per.get('IMAD.HI.U32', 0)} = {MONT_PER_PERM} x "
-          f"{WIDE_PER_MONT} wide multiply-adds, as the source counts; IMAD "
-          f"{narrow}: the source's {MONT_PER_PERM} x {NARROW_PER_MONT} "
-          f"32-bit ones and address arithmetic); top: {top}")
+    print(f"phase 2: SASS census per permutation, K1 (permute_kernel, the "
+          f"perms loop's body): {sum(per.values())} instructions "
+          f"(IMAD.WIDE.U32 {per.get('IMAD.WIDE.U32', 0)} + IMAD.HI.U32 "
+          f"{per.get('IMAD.HI.U32', 0)}: the source's {K1_WORK[0]} wide "
+          f"multiply-adds; IMAD {per.get('IMAD', 0)}: at least the source's "
+          f"{K1_WORK[1]} 32-bit ones); top: {top}")
     sp = sparse_census(sass)
     top = sorted(sp.items(), key=lambda kv: -kv[1])[:12]
     print(f"phase 2: SASS census per permutation, sparse core "
           f"(hash2_kernel, two permutations halved): {sum(sp.values())} "
-          f"instructions = {sum(sp.values()) / sum(per.values()):.4f} of the "
-          f"dense core's, {sum(sp.values()) / SPARSE_MONT_PER_PERM:.1f} per "
+          f"instructions = {sum(sp.values()) / sum(per.values()):.4f} of "
+          f"K1's, {sum(sp.values()) / SPARSE_MONT_PER_PERM:.1f} per "
           f"product (IMAD.WIDE.U32 {sp.get('IMAD.WIDE.U32', 0)} + "
           f"IMAD.HI.U32 {sp.get('IMAD.HI.U32', 0)}: the source's "
           f"{SPARSE_MONT_PER_PERM} x {WIDE_PER_MONT} wide multiply-adds, "
@@ -455,9 +471,9 @@ def phase_build(_build) -> None:
           f"{sp.get('IMAD', 0)}: at least the source's "
           f"{SPARSE_MONT_PER_PERM} x {NARROW_PER_MONT} 32-bit ones); top: "
           f"{top}")
-    if sum(sp.values()) >= sum(per.values()):
-        raise AssertionError("the sparse core runs no fewer instructions per "
-                             "permutation than the dense core")
+    if sum(per.values()) >= sum(sp.values()):
+        raise AssertionError("K1 runs no fewer instructions per permutation "
+                             "than the hash kernels' sparse core")
 
 
 # -- phase 3 / 3b: kernels vs plain ------------------------------------------
@@ -487,8 +503,8 @@ def phase_kernel_vs_plain(torch, pc, plain, field) -> dict:
             "hash2_nodes": (pc.hash2_nodes, plain.hash2_nodes,
                             (nodes[0], nodes[1])),
             "hash3_leaf": (pc.hash3_leaf, plain.hash3_leaf, tuple(L)),
-            "permute_n": (lambda s: pc.permute_n(s, 2),
-                          lambda s: plain.permute_n(s, 2),
+            "permute_n": (lambda s: chains(pc.permute_n, s),
+                          lambda s: chains(plain.permute_n, s),
                           (torch.stack(nodes),)),
         }
         for name, (kern, ref, args) in cases.items():
@@ -501,8 +517,10 @@ def phase_kernel_vs_plain(torch, pc, plain, field) -> dict:
                 raise AssertionError(
                     f"{name} width {width}: kernel differs from plain")
     for name, err in errs.items():
-        print(f"phase 3: {name} widths {', '.join(map(str, PHASE3_WIDTHS))}: "
-              f"kernel vs plain max_abs_err {err} (tolerance 0, bit-exact)")
+        chained = f" n_perms {K1_CHAINS}" if name == "permute_n" else ""
+        print(f"phase 3: {name}{chained} widths "
+              f"{', '.join(map(str, PHASE3_WIDTHS))}: kernel vs plain "
+              f"max_abs_err {err} (tolerance 0, bit-exact)")
 
     z = torch.zeros((16, 1), dtype=torch.int32, device=dev)
     h = field.limbs_to_int(pc.nodes_to_limbs(pc.hash3_leaf(z, z, z))[:, 0]
@@ -518,6 +536,12 @@ def phase_kernel_vs_plain(torch, pc, plain, field) -> dict:
     print("phase 3: kernel reproduces H(0,0,0) = 0x0455a7...48e9 and the "
           "poseidonperm_x5_254_3 vector")
     return errs
+
+
+def chains(permute_n, st):
+    """permute_n over `st` at each chain length of K1_CHAINS, stacked."""
+    import torch
+    return torch.stack([permute_n(st, n) for n in K1_CHAINS])
 
 
 def edge_values(field) -> list:
@@ -702,15 +726,16 @@ def check_launched(path: str, launches: dict) -> None:
             raise AssertionError(f"the {path} path never launched {name}")
 
 
-def replay_small(indexed, reference_oracle, dev) -> None:
-    """Three K=8 batches (duplicates, zeros, chains) into a depth-6 tree on
-    `dev`; after each, the ok mask and the root must equal the python-int
-    oracle's.  The oracle's own planner (update_idx_leaf) keeps the
-    reference's quirk of taking an empty slot as a low leaf, and rejected
-    values leave empty slots behind; so the list rule is replayed here on
-    python ints, and the oracle hashes the leaves and builds the tree."""
-    small = indexed.IndexedMerkleTree(6, device=dev)
-    pre = [reference_oracle.Leaf(0, 0, 0) for _ in range(1 << 6)]
+def replay_small(indexed, reference_oracle, dev, depth: int = 6) -> None:
+    """Three K=8 batches (duplicates, zeros, chains) into a tree of `depth`
+    (at least 5: 25 slots) on `dev`; after each, the ok mask and the root
+    must equal the python-int oracle's.  The oracle's own planner
+    (update_idx_leaf) keeps the reference's quirk of taking an empty slot
+    as a low leaf, and rejected values leave empty slots behind; so the
+    list rule is replayed here on python ints, and the oracle hashes the
+    leaves and builds the tree."""
+    small = indexed.IndexedMerkleTree(depth, device=dev)
+    pre = [reference_oracle.Leaf(0, 0, 0) for _ in range(1 << depth)]
     seen6: set = set()
     slot = 0
     for vals6 in ([30, 10, 20, 5, 50, 35, 10, 0],
@@ -735,12 +760,14 @@ def replay_small(indexed, reference_oracle, dev) -> None:
 
 # -- phase 4b: the sequential witness path -----------------------------------
 
-def golden_path(indexed, reference_oracle, field, dev) -> None:
-    """[30, 10, 20, 5, 50, 35] through insert into a depth-6 tree on `dev`:
-    after each insert, the root and every witness field must equal the
-    python-int oracle's sequential insert (reference discipline)."""
-    tree = indexed.IndexedMerkleTree(6, device=dev)
-    oracle = reference_oracle.OracleIndexedTree(6)
+def golden_path(indexed, reference_oracle, field, dev,
+                depth: int = 6) -> None:
+    """[30, 10, 20, 5, 50, 35] through insert into a tree of `depth` (at
+    least 3: 7 slots) on `dev`: after each insert, the root and every
+    witness field must equal the python-int oracle's sequential insert
+    (reference discipline)."""
+    tree = indexed.IndexedMerkleTree(depth, device=dev)
+    oracle = reference_oracle.OracleIndexedTree(depth)
     ints = lambda x: field.limbs_to_ints(x.cpu().numpy())
     for v in GOLDEN:
         w, o = tree.insert(v), oracle.insert(v)
@@ -1765,13 +1792,24 @@ def phase_sharded(torch, pc, field, sparse_out: dict, work_dir: str,
 
 # -- phase 5: numbers ---------------------------------------------------------
 
-def poseidon_bound_ms(name: str, width: int, imad_per_s: float):
+def poseidon_bound_ms(name: str, width: int, imad_per_s: float,
+                      n: int = 1):
     """(ms, what bounds it): the larger of the least multiply-adds (each one
-    IMAD) over the published IMAD rate and the bytes over the HBM rate."""
-    ops_s = width * sum(LANE_WORK[name]) / imad_per_s
+    IMAD) over the published IMAD rate and the bytes over the HBM rate; n
+    chained calls of the function's work on the same bytes (K1's n_perms)."""
+    ops_s = n * width * sum(LANE_WORK[name]) / imad_per_s
     bytes_s = width * BYTES_PER_LANE[name] / HBM_BYTES_PER_S
     return (1e3 * max(ops_s, bytes_s),
             "operations" if ops_s >= bytes_s else "bytes")
+
+
+def probe_bound_ms(name: str, width: int, ceiling: dict, n: int = 1):
+    """The same bound at the probe's measured ceilings: wide steps at the
+    cios16 rate, 32-bit IMADs at the imad16 rate, bytes as above."""
+    wide, narrow = LANE_WORK[name]
+    return max(1e3 * n * width * (wide / ceiling["cios16"]
+                                  + narrow / ceiling["imad16"]),
+               1e3 * width * BYTES_PER_LANE[name] / HBM_BYTES_PER_S)
 
 
 def roofline_bound_ms(vr, name: str, n: int, k: int, imad_per_s: float):
@@ -1862,13 +1900,7 @@ def phase_numbers(torch, pc, plain, vr, vc, indexed, field, card: str,
         }
         for name, call in cases.items():
             bound, by = poseidon_bound_ms(name, width, imad_per_s)
-            # the probe's measured ceilings: wide steps at the cios16 rate,
-            # 32-bit IMADs at the imad16 rate (bytes as above)
-            wide, narrow = LANE_WORK[name]
-            measured = max(1e3 * width * (wide / ceiling["cios16"]
-                                          + narrow / ceiling["imad16"]),
-                           1e3 * width * BYTES_PER_LANE[name]
-                           / HBM_BYTES_PER_S)
+            measured = probe_bound_ms(name, width, ceiling)
             if width == FILL_WIDTH:
                 k1 = vr.time_ms(lambda: call(pc), 10, 2)
                 k2 = vr.time_ms(lambda: call(pc), 10, 0)
@@ -1891,25 +1923,33 @@ def phase_numbers(torch, pc, plain, vr, vc, indexed, field, card: str,
                   f"bound by the probe's cios16/imad16 ceilings {measured} "
                   f"ms, share {100 * measured / min(k1, k2):.1f}% [{card}]")
 
-    # the hash kernels' sparse core against the dense core, in turns (dense,
-    # hash2, hash2, dense): hash2 runs two sparse-core permutations per lane,
-    # permute_n(st, 2) two dense-core ones; at the sequential path's width,
-    # the batched path's widest and a width that fills the card
-    for width in (SEQ_WIDTH, TIMING_WIDTH, FILL_WIDTH):
+    # K1 per permutation against hash2 per permutation (hash2 runs two
+    # permutations a lane), in turns (K1 at n_perms 1 and 2, hash2, hash2,
+    # K1 at 2 and 1), at the sequential path's width, the batched path's
+    # widest, the reference bench's headline batch and a width that fills
+    # the card
+    for width in (SEQ_WIDTH, TIMING_WIDTH, BENCH_WIDTH, FILL_WIDTH):
         nodes = [pc.limbs_to_nodes(x[:, :width].contiguous()) for x in L]
         st = torch.stack(nodes)
         hash2 = lambda: pc.hash2_nodes(nodes[0], nodes[1])
-        dense = lambda: pc.permute_n(st, 2)
-        reps = 10 if width == FILL_WIDTH else 20
-        d1 = vr.time_ms(dense, reps, 2)
-        h1 = vr.time_ms(hash2, reps, 2)
-        h2 = vr.time_ms(hash2, reps, 0)
-        d2 = vr.time_ms(dense, reps, 0)
-        bound, by = poseidon_bound_ms("hash2_nodes", width, imad_per_s)
-        print(f"phase 5: width {width}: hash2_nodes (sparse core) ms {h1} "
-              f"{h2}, permute_n(st, 2) (dense core) ms {d1} {d2}: hash2 / "
-              f"dense {min(h1, h2) / min(d1, d2):.4f}; hash2 bound {bound} "
-              f"ms ({by}), share {100 * bound / min(h1, h2):.2f}% [{card}]")
+        perm = lambda n: (lambda: pc.permute_n(st, n))
+        reps = 10 if width >= BENCH_WIDTH else 20
+        k = {n: [vr.time_ms(perm(n), reps, 2)] for n in (1, 2)}
+        h = [vr.time_ms(hash2, reps, 2), vr.time_ms(hash2, reps, 0)]
+        for n in (2, 1):
+            k[n].append(vr.time_ms(perm(n), reps, 0))
+        shares = []
+        for n in (1, 2):
+            bound, by = poseidon_bound_ms("permute_n", width, imad_per_s, n)
+            measured = probe_bound_ms("permute_n", width, ceiling, n)
+            shares.append(
+                f"n_perms {n}: ms {k[n][0]} {k[n][1]}, "
+                f"{min(k[n]) / n} per permutation, bound {bound} ms ({by}), "
+                f"share {100 * bound / min(k[n]):.1f}%, probe bound "
+                f"{measured} ms, share {100 * measured / min(k[n]):.1f}%")
+        print(f"phase 5: K1 width {width}: {'; '.join(shares)}; hash2_nodes "
+              f"ms {h[0]} {h[1]}, {min(h) / 2} per permutation; K1 / hash2 "
+              f"per permutation {min(k[2]) / min(h):.4f} [{card}]")
 
     for name in vr.BODIES:
         x = vr.seeded_input(name, *PROBE_SHAPE, seed=SEED)
@@ -1977,10 +2017,9 @@ def main() -> int:
           f"max SM clock {clock_mhz} MHz; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}")
     print(f"phase 1: least multiply-adds per permutation (bound): wide "
-          f"{PERM_WORK[0]}, 32-bit {PERM_WORK[1]}; the dense core's: wide "
-          f"{MONT_PER_PERM * WIDE_PER_MONT}, 32-bit "
-          f"{MONT_PER_PERM * NARROW_PER_MONT}; the sparse core's: "
-          f"{SPARSE_MONT_PER_PERM} products, wide "
+          f"{PERM_WORK[0]}, 32-bit {PERM_WORK[1]}; K1's core: wide "
+          f"{K1_WORK[0]}, 32-bit {K1_WORK[1]}; the hash kernels' sparse "
+          f"core: {SPARSE_MONT_PER_PERM} products, wide "
           f"{SPARSE_MONT_PER_PERM * WIDE_PER_MONT}, 32-bit "
           f"{SPARSE_MONT_PER_PERM * NARROW_PER_MONT}")
 

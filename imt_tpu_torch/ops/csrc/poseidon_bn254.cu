@@ -22,22 +22,27 @@
 // one thread's dependent instruction chain.
 // One thread per lane, the whole state in registers, the constants
 // (Montgomery form) in __constant__ memory, where every thread of a warp
-// reads the same word.  Two permutation cores:
+// reads the same word.  Two permutation cores, both on the optimized-spec
+// schedule of ops/poseidon_opt.py::permute_opt -- 4 full rounds (the last
+// with the folded MDS), 57 partial rounds of one S-box and a sparse matrix,
+// 4 full rounds:
 //
-// - permute (the dense core, imt_permute_n): the standard round structure
-//   of poseidon_ref.permute, 828 products per permutation, with the CIOS
-//   product of imt_tpu/native/imt_native.cpp on 64-bit C++ accumulators.
-// - permute_sparse (the hash kernels): the optimized-spec schedule of
-//   ops/poseidon_opt.py::permute_opt -- 4 full rounds (the last with the
-//   folded MDS), 57 partial rounds of one S-box and a sparse matrix (3 + 5
-//   products), 4 full rounds: 600 products per permutation -- on a CIOS
-//   product (mont_mul_cc) whose rows are eight independent 64-bit
-//   multiply-adds (IMAD.WIDE.U32) and one PTX carry chain of adds.  Each
-//   chain (a row of the product, a row of the reduction, the final
-//   subtraction) is one asm statement: the carry flag does not survive
-//   from one asm statement to the next.
+// - permute_sparse (the hash kernels): 600 Montgomery products per
+//   permutation, each a CIOS product (mont_mul_cc) whose rows are eight
+//   independent 64-bit multiply-adds (IMAD.WIDE.U32) and one PTX carry
+//   chain of adds.  Each chain (a row of the product, a row of the
+//   reduction, the final subtraction) is one asm statement: the carry flag
+//   does not survive from one asm statement to the next.
+// - permute_lazy (K1, imt_permute_n): the least-work arithmetic on the
+//   same schedule.  Each dot product (an MDS row; a partial round's
+//   m00 s + v1 x1 + v2 x2) sums its three products' rows before one
+//   reduction row per row (mont_dot3), and each S-box square takes its 36
+//   products with a separated reduction (mont_sqr): 61,896 wide and 3,504
+//   32-bit multiply-adds per permutation, against the sparse core's 76,800
+//   and 4,800.  Every intermediate word is fully reduced, so a chain of
+//   permutations carries node-form states.
 //
-// Both cores compute the same permutation, so the hashes equal the plain
+// Both cores compute the same permutation, so the outputs equal the plain
 // version bit for bit.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -175,42 +180,6 @@ IMT_HD void from_mont(Fr& r, const Fr& a) {
 #pragma unroll
   for (int i = 0; i < kWords; ++i) one.v[i] = i == 0 ? 1u : 0u;
   mont_mul(r, a, one);
-}
-
-IMT_HD void pow5(Fr& x) {
-  Fr x2, x4;
-  mont_mul(x2, x, x);
-  mont_mul(x4, x2, x2);
-  mont_mul(x, x4, x);
-}
-
-// One permutation, the standard round structure (poseidon_ref.permute):
-// add round constants, S-box (all words in full rounds, word 0 in partial
-// rounds), MDS.
-IMT_HD void permute(Fr st[kT], const Consts& c) {
-#pragma unroll 1
-  for (int r = 0; r < kRounds; ++r) {
-    Fr s[kT];
-#pragma unroll
-    for (int i = 0; i < kT; ++i) add_mod(s[i], st[i], c.rc[r][i]);
-    if (r >= kRF / 2 && r < kRF / 2 + kRP) {
-      pow5(s[0]);
-    } else {
-#pragma unroll
-      for (int i = 0; i < kT; ++i) pow5(s[i]);
-    }
-#pragma unroll
-    for (int i = 0; i < kT; ++i) {
-      Fr acc, p;
-      mont_mul(acc, c.mds[i][0], s[0]);
-#pragma unroll
-      for (int j = 1; j < kT; ++j) {
-        mont_mul(p, c.mds[i][j], s[j]);
-        add_mod(acc, acc, p);
-      }
-      st[i] = acc;
-    }
-  }
 }
 
 // ---- carry-chained arithmetic ----------------------------------------------
@@ -431,6 +400,416 @@ IMT_HD void permute_sparse(Fr st[kT], const Consts& c) {
   for (int r = 0; r < kHalf; ++r) full_round_sparse(st, c.post[r], c.mds);
 }
 
+// ---- K1's core: one reduction per dot, squares of 36 products -------------
+//
+// The sparse core's schedule with the least-work arithmetic.  A dot product
+// (each MDS row, each partial round's m00 s + v1 x1 + v2 x2) sums its three
+// products unreduced and reduces once: in CIOS form (mont_dot3) each of the
+// 8 rows adds the three products' rows before its one reduction row, 256
+// wide multiply-adds and 8 32-bit ones per dot, where three mont_mul_cc
+// products take 384 and 24 and two add_mod_cc follow.  A square (mont_sqr)
+// computes each cross product once, doubles, adds the 8 squares, then
+// reduces: 100 wide multiply-adds, where mont_mul_cc takes 128.
+
+#ifdef __CUDA_ARCH__
+
+// t[0..9] += ai * b, as mac_row, with t[9] holding the carries of the
+// earlier rows since the last reduction row (< 4) instead of 0.
+__device__ __forceinline__ void mac_row_acc(u32 t[kWords + 2], u32 ai,
+                                            const Fr& b) {
+  u64 p[kWords];
+#pragma unroll
+  for (int j = 0; j < kWords; ++j) p[j] = (u64)ai * b.v[j] + t[j];
+  asm("{\n\t.reg .u32 l<8>, h<8>;\n\t"
+      "mov.b64 {l0, h0}, %10;\n\t"
+      "mov.b64 {l1, h1}, %11;\n\t"
+      "mov.b64 {l2, h2}, %12;\n\t"
+      "mov.b64 {l3, h3}, %13;\n\t"
+      "mov.b64 {l4, h4}, %14;\n\t"
+      "mov.b64 {l5, h5}, %15;\n\t"
+      "mov.b64 {l6, h6}, %16;\n\t"
+      "mov.b64 {l7, h7}, %17;\n\t"
+      "mov.b32 %0, l0;\n\t"
+      "add.cc.u32 %1, l1, h0;\n\t"
+      "addc.cc.u32 %2, l2, h1;\n\t"
+      "addc.cc.u32 %3, l3, h2;\n\t"
+      "addc.cc.u32 %4, l4, h3;\n\t"
+      "addc.cc.u32 %5, l5, h4;\n\t"
+      "addc.cc.u32 %6, l6, h5;\n\t"
+      "addc.cc.u32 %7, l7, h6;\n\t"
+      "addc.cc.u32 %8, %18, h7;\n\t"
+      "addc.u32 %9, %19, %20;\n\t}"
+      : "=r"(t[0]), "=r"(t[1]), "=r"(t[2]), "=r"(t[3]), "=r"(t[4]),
+        "=r"(t[5]), "=r"(t[6]), "=r"(t[7]), "=r"(t[8]), "=r"(t[9])
+      : "l"(p[0]), "l"(p[1]), "l"(p[2]), "l"(p[3]), "l"(p[4]), "l"(p[5]),
+        "l"(p[6]), "l"(p[7]), "r"(t[8]), "r"(t[9]), "r"(0u));
+}
+
+#endif  // __CUDA_ARCH__
+
+// r = (a[0] b[0] + a[1] b[1] + a[2] b[2]) / R mod p, < p, with one
+// Montgomery reduction per row of the CIOS product instead of one per
+// product.  Every a[k] and b[k] < p: the sum stays below 3 p^2 < p R, so
+// the result is < 2p before the final subtraction, and between rows t < 4p
+// plus the rows' products, inside t[0..9] with t[9] < 4.
+IMT_HD void mont_dot3(Fr& r, const Fr a[kT], const Fr b[kT]) {
+  u32 t[kWords + 2];
+#pragma unroll
+  for (int j = 0; j < kWords + 2; ++j) t[j] = 0;
+#ifdef __CUDA_ARCH__
+#pragma unroll
+  for (int i = 0; i < kWords; ++i) {
+#pragma unroll
+    for (int k = 0; k < kT; ++k) mac_row_acc(t, a[k].v[i], b[k]);
+    redc_row(t);
+  }
+  reduce_once_cc(r, t);
+#else
+  for (int i = 0; i < kWords; ++i) {
+    for (int k = 0; k < kT; ++k) {
+      u64 carry = 0;
+      for (int j = 0; j < kWords; ++j) {
+        u64 cur = (u64)a[k].v[i] * b[k].v[j] + t[j] + carry;
+        t[j] = (u32)cur;
+        carry = cur >> 32;
+      }
+      u64 cur = (u64)t[kWords] + carry;
+      t[kWords] = (u32)cur;
+      t[kWords + 1] += (u32)(cur >> 32);
+    }
+    const u32 m = t[0] * kInv;
+    u64 carry = ((u64)m * mod_word(0) + t[0]) >> 32;
+    for (int j = 1; j < kWords; ++j) {
+      u64 cur = (u64)m * mod_word(j) + t[j] + carry;
+      t[j - 1] = (u32)cur;
+      carry = cur >> 32;
+    }
+    u64 cur = (u64)t[kWords] + carry;
+    t[kWords - 1] = (u32)cur;
+    t[kWords] = t[kWords + 1] + (u32)(cur >> 32);
+    t[kWords + 1] = 0;
+  }
+  reduce_once(r, t, t[kWords]);
+#endif
+}
+
+#ifdef __CUDA_ARCH__
+
+// t[0..15] = a^2: the 28 cross products a_i a_j (i < j) once, in rows of
+// 64-bit multiply-adds and one carry chain each, doubled by funnel shifts,
+// then the 8 squares a_i^2 added in one chain: 36 wide multiply-adds.
+__device__ __forceinline__ void sqr_wide(u32 t[2 * kWords], const Fr& a) {
+#pragma unroll
+  for (int k = 0; k < 2 * kWords; ++k) t[k] = 0;
+  {
+    u64 p[7];
+    p[0] = (u64)a.v[0] * a.v[1] + t[1];
+    p[1] = (u64)a.v[0] * a.v[2] + t[2];
+    p[2] = (u64)a.v[0] * a.v[3] + t[3];
+    p[3] = (u64)a.v[0] * a.v[4] + t[4];
+    p[4] = (u64)a.v[0] * a.v[5] + t[5];
+    p[5] = (u64)a.v[0] * a.v[6] + t[6];
+    p[6] = (u64)a.v[0] * a.v[7] + t[7];
+    asm("{\n\t.reg .u32 l<7>, h<7>;\n\t"
+        "mov.b64 {l0, h0}, %8;\n\t"
+        "mov.b64 {l1, h1}, %9;\n\t"
+        "mov.b64 {l2, h2}, %10;\n\t"
+        "mov.b64 {l3, h3}, %11;\n\t"
+        "mov.b64 {l4, h4}, %12;\n\t"
+        "mov.b64 {l5, h5}, %13;\n\t"
+        "mov.b64 {l6, h6}, %14;\n\t"
+        "mov.b32 %0, l0;\n\t"
+        "add.cc.u32 %1, l1, h0;\n\t"
+        "addc.cc.u32 %2, l2, h1;\n\t"
+        "addc.cc.u32 %3, l3, h2;\n\t"
+        "addc.cc.u32 %4, l4, h3;\n\t"
+        "addc.cc.u32 %5, l5, h4;\n\t"
+        "addc.cc.u32 %6, l6, h5;\n\t"
+        "addc.u32 %7, h6, 0;\n\t}"
+        : "=r"(t[1]), "=r"(t[2]), "=r"(t[3]), "=r"(t[4]), "=r"(t[5]),
+          "=r"(t[6]), "=r"(t[7]), "=r"(t[8])
+        : "l"(p[0]), "l"(p[1]), "l"(p[2]), "l"(p[3]), "l"(p[4]), "l"(p[5]),
+          "l"(p[6]));
+  }
+  {
+    u64 p[6];
+    p[0] = (u64)a.v[1] * a.v[2] + t[3];
+    p[1] = (u64)a.v[1] * a.v[3] + t[4];
+    p[2] = (u64)a.v[1] * a.v[4] + t[5];
+    p[3] = (u64)a.v[1] * a.v[5] + t[6];
+    p[4] = (u64)a.v[1] * a.v[6] + t[7];
+    p[5] = (u64)a.v[1] * a.v[7] + t[8];
+    asm("{\n\t.reg .u32 l<6>, h<6>;\n\t"
+        "mov.b64 {l0, h0}, %7;\n\t"
+        "mov.b64 {l1, h1}, %8;\n\t"
+        "mov.b64 {l2, h2}, %9;\n\t"
+        "mov.b64 {l3, h3}, %10;\n\t"
+        "mov.b64 {l4, h4}, %11;\n\t"
+        "mov.b64 {l5, h5}, %12;\n\t"
+        "mov.b32 %0, l0;\n\t"
+        "add.cc.u32 %1, l1, h0;\n\t"
+        "addc.cc.u32 %2, l2, h1;\n\t"
+        "addc.cc.u32 %3, l3, h2;\n\t"
+        "addc.cc.u32 %4, l4, h3;\n\t"
+        "addc.cc.u32 %5, l5, h4;\n\t"
+        "addc.u32 %6, h5, 0;\n\t}"
+        : "=r"(t[3]), "=r"(t[4]), "=r"(t[5]), "=r"(t[6]), "=r"(t[7]),
+          "=r"(t[8]), "=r"(t[9])
+        : "l"(p[0]), "l"(p[1]), "l"(p[2]), "l"(p[3]), "l"(p[4]), "l"(p[5]));
+  }
+  {
+    u64 p[5];
+    p[0] = (u64)a.v[2] * a.v[3] + t[5];
+    p[1] = (u64)a.v[2] * a.v[4] + t[6];
+    p[2] = (u64)a.v[2] * a.v[5] + t[7];
+    p[3] = (u64)a.v[2] * a.v[6] + t[8];
+    p[4] = (u64)a.v[2] * a.v[7] + t[9];
+    asm("{\n\t.reg .u32 l<5>, h<5>;\n\t"
+        "mov.b64 {l0, h0}, %6;\n\t"
+        "mov.b64 {l1, h1}, %7;\n\t"
+        "mov.b64 {l2, h2}, %8;\n\t"
+        "mov.b64 {l3, h3}, %9;\n\t"
+        "mov.b64 {l4, h4}, %10;\n\t"
+        "mov.b32 %0, l0;\n\t"
+        "add.cc.u32 %1, l1, h0;\n\t"
+        "addc.cc.u32 %2, l2, h1;\n\t"
+        "addc.cc.u32 %3, l3, h2;\n\t"
+        "addc.cc.u32 %4, l4, h3;\n\t"
+        "addc.u32 %5, h4, 0;\n\t}"
+        : "=r"(t[5]), "=r"(t[6]), "=r"(t[7]), "=r"(t[8]), "=r"(t[9]),
+          "=r"(t[10])
+        : "l"(p[0]), "l"(p[1]), "l"(p[2]), "l"(p[3]), "l"(p[4]));
+  }
+  {
+    u64 p[4];
+    p[0] = (u64)a.v[3] * a.v[4] + t[7];
+    p[1] = (u64)a.v[3] * a.v[5] + t[8];
+    p[2] = (u64)a.v[3] * a.v[6] + t[9];
+    p[3] = (u64)a.v[3] * a.v[7] + t[10];
+    asm("{\n\t.reg .u32 l<4>, h<4>;\n\t"
+        "mov.b64 {l0, h0}, %5;\n\t"
+        "mov.b64 {l1, h1}, %6;\n\t"
+        "mov.b64 {l2, h2}, %7;\n\t"
+        "mov.b64 {l3, h3}, %8;\n\t"
+        "mov.b32 %0, l0;\n\t"
+        "add.cc.u32 %1, l1, h0;\n\t"
+        "addc.cc.u32 %2, l2, h1;\n\t"
+        "addc.cc.u32 %3, l3, h2;\n\t"
+        "addc.u32 %4, h3, 0;\n\t}"
+        : "=r"(t[7]), "=r"(t[8]), "=r"(t[9]), "=r"(t[10]), "=r"(t[11])
+        : "l"(p[0]), "l"(p[1]), "l"(p[2]), "l"(p[3]));
+  }
+  {
+    u64 p[3];
+    p[0] = (u64)a.v[4] * a.v[5] + t[9];
+    p[1] = (u64)a.v[4] * a.v[6] + t[10];
+    p[2] = (u64)a.v[4] * a.v[7] + t[11];
+    asm("{\n\t.reg .u32 l<3>, h<3>;\n\t"
+        "mov.b64 {l0, h0}, %4;\n\t"
+        "mov.b64 {l1, h1}, %5;\n\t"
+        "mov.b64 {l2, h2}, %6;\n\t"
+        "mov.b32 %0, l0;\n\t"
+        "add.cc.u32 %1, l1, h0;\n\t"
+        "addc.cc.u32 %2, l2, h1;\n\t"
+        "addc.u32 %3, h2, 0;\n\t}"
+        : "=r"(t[9]), "=r"(t[10]), "=r"(t[11]), "=r"(t[12])
+        : "l"(p[0]), "l"(p[1]), "l"(p[2]));
+  }
+  {
+    u64 p[2];
+    p[0] = (u64)a.v[5] * a.v[6] + t[11];
+    p[1] = (u64)a.v[5] * a.v[7] + t[12];
+    asm("{\n\t.reg .u32 l<2>, h<2>;\n\t"
+        "mov.b64 {l0, h0}, %3;\n\t"
+        "mov.b64 {l1, h1}, %4;\n\t"
+        "mov.b32 %0, l0;\n\t"
+        "add.cc.u32 %1, l1, h0;\n\t"
+        "addc.u32 %2, h1, 0;\n\t}"
+        : "=r"(t[11]), "=r"(t[12]), "=r"(t[13])
+        : "l"(p[0]), "l"(p[1]));
+  }
+  {
+    const u64 p = (u64)a.v[6] * a.v[7] + t[13];
+    t[13] = (u32)p;
+    t[14] = (u32)(p >> 32);
+  }
+#pragma unroll
+  for (int k = 2 * kWords - 1; k > 1; --k) {
+    t[k] = __funnelshift_l(t[k - 1], t[k], 1);
+  }
+  t[1] <<= 1;
+  u64 q[kWords];
+#pragma unroll
+  for (int i = 0; i < kWords; ++i) q[i] = (u64)a.v[i] * a.v[i];
+  asm("{\n\t.reg .u32 l<8>, h<8>;\n\t"
+      "mov.b64 {l0, h0}, %16;\n\t"
+      "mov.b64 {l1, h1}, %17;\n\t"
+      "mov.b64 {l2, h2}, %18;\n\t"
+      "mov.b64 {l3, h3}, %19;\n\t"
+      "mov.b64 {l4, h4}, %20;\n\t"
+      "mov.b64 {l5, h5}, %21;\n\t"
+      "mov.b64 {l6, h6}, %22;\n\t"
+      "mov.b64 {l7, h7}, %23;\n\t"
+      "add.cc.u32 %0, %0, l0;\n\t"
+      "addc.cc.u32 %1, %1, h0;\n\t"
+      "addc.cc.u32 %2, %2, l1;\n\t"
+      "addc.cc.u32 %3, %3, h1;\n\t"
+      "addc.cc.u32 %4, %4, l2;\n\t"
+      "addc.cc.u32 %5, %5, h2;\n\t"
+      "addc.cc.u32 %6, %6, l3;\n\t"
+      "addc.cc.u32 %7, %7, h3;\n\t"
+      "addc.cc.u32 %8, %8, l4;\n\t"
+      "addc.cc.u32 %9, %9, h4;\n\t"
+      "addc.cc.u32 %10, %10, l5;\n\t"
+      "addc.cc.u32 %11, %11, h5;\n\t"
+      "addc.cc.u32 %12, %12, l6;\n\t"
+      "addc.cc.u32 %13, %13, h6;\n\t"
+      "addc.cc.u32 %14, %14, l7;\n\t"
+      "addc.u32 %15, %15, h7;\n\t}"
+      : "+r"(t[0]), "+r"(t[1]), "+r"(t[2]), "+r"(t[3]), "+r"(t[4]),
+        "+r"(t[5]), "+r"(t[6]), "+r"(t[7]), "+r"(t[8]), "+r"(t[9]),
+        "+r"(t[10]), "+r"(t[11]), "+r"(t[12]), "+r"(t[13]), "+r"(t[14]),
+        "+r"(t[15])
+      : "l"(q[0]), "l"(q[1]), "l"(q[2]), "l"(q[3]), "l"(q[4]), "l"(q[5]),
+        "l"(q[6]), "l"(q[7]));
+}
+
+// One row of the separated reduction, on t[0..8] of the 16-word product:
+// m = t[0] * (-p^-1), t += m * p (its low word becomes 0).  e carries the
+// previous row's carry out of its top word, which lands on this row's
+// t[8]: it rides in the high half of the last product's addend, and the
+// row's own carry out goes back in e.
+__device__ __forceinline__ void sos_redc_row(u32 t[kWords + 1], u32& e) {
+  const u32 m = t[0] * kInv;
+  u64 p[kWords];
+#pragma unroll
+  for (int j = 0; j < kWords - 1; ++j) p[j] = (u64)m * mod_word(j) + t[j];
+  p[kWords - 1] = (u64)m * mod_word(kWords - 1) +
+                  (((u64)e << 32) | t[kWords - 1]);
+  asm("{\n\t.reg .u32 l<8>, h<8>;\n\t"
+      "mov.b64 {l0, h0}, %9;\n\t"
+      "mov.b64 {l1, h1}, %10;\n\t"
+      "mov.b64 {l2, h2}, %11;\n\t"
+      "mov.b64 {l3, h3}, %12;\n\t"
+      "mov.b64 {l4, h4}, %13;\n\t"
+      "mov.b64 {l5, h5}, %14;\n\t"
+      "mov.b64 {l6, h6}, %15;\n\t"
+      "mov.b64 {l7, h7}, %16;\n\t"
+      "add.cc.u32 %0, l1, h0;\n\t"
+      "addc.cc.u32 %1, l2, h1;\n\t"
+      "addc.cc.u32 %2, l3, h2;\n\t"
+      "addc.cc.u32 %3, l4, h3;\n\t"
+      "addc.cc.u32 %4, l5, h4;\n\t"
+      "addc.cc.u32 %5, l6, h5;\n\t"
+      "addc.cc.u32 %6, l7, h6;\n\t"
+      "addc.cc.u32 %7, %17, h7;\n\t"
+      "addc.u32 %8, %18, %18;\n\t}"
+      : "=r"(t[1]), "=r"(t[2]), "=r"(t[3]), "=r"(t[4]), "=r"(t[5]),
+        "=r"(t[6]), "=r"(t[7]), "=r"(t[8]), "=r"(e)
+      : "l"(p[0]), "l"(p[1]), "l"(p[2]), "l"(p[3]), "l"(p[4]), "l"(p[5]),
+        "l"(p[6]), "l"(p[7]), "r"(t[8]), "r"(0u));
+}
+
+#endif  // __CUDA_ARCH__
+
+// r = a^2 / R mod p, < p: the square's 36 products (sqr_wide), then the
+// separated reduction, 8 rows of sos_redc_row.  a < p: a^2 < p R, so the
+// result is < 2p before the final subtraction, and the last row's carry
+// out is 0.
+IMT_HD void mont_sqr(Fr& r, const Fr& a) {
+  u32 t[2 * kWords], e = 0;
+#ifdef __CUDA_ARCH__
+  sqr_wide(t, a);
+#pragma unroll
+  for (int i = 0; i < kWords; ++i) sos_redc_row(t + i, e);
+  u32 u[kWords + 1];
+#pragma unroll
+  for (int k = 0; k < kWords; ++k) u[k] = t[kWords + k];
+  u[kWords] = e;
+  reduce_once_cc(r, u);
+#else
+  for (int k = 0; k < 2 * kWords; ++k) t[k] = 0;
+  for (int i = 0; i < kWords - 1; ++i) {
+    u64 carry = 0;
+    for (int j = i + 1; j < kWords; ++j) {
+      u64 cur = (u64)a.v[i] * a.v[j] + t[i + j] + carry;
+      t[i + j] = (u32)cur;
+      carry = cur >> 32;
+    }
+    t[i + kWords] = (u32)carry;
+  }
+  for (int k = 2 * kWords - 1; k > 0; --k) {
+    t[k] = (t[k] << 1) | (t[k - 1] >> 31);
+  }
+  t[0] <<= 1;
+  u64 carry = 0;
+  for (int i = 0; i < kWords; ++i) {
+    u64 cur = (u64)a.v[i] * a.v[i] + t[2 * i] + carry;
+    t[2 * i] = (u32)cur;
+    cur = (u64)t[2 * i + 1] + (cur >> 32);
+    t[2 * i + 1] = (u32)cur;
+    carry = cur >> 32;
+  }
+  for (int i = 0; i < kWords; ++i) {
+    const u32 m = t[i] * kInv;
+    u64 c = ((u64)m * mod_word(0) + t[i]) >> 32;
+    for (int j = 1; j < kWords; ++j) {
+      u64 cur = (u64)m * mod_word(j) + t[i + j] + c;
+      t[i + j] = (u32)cur;
+      c = cur >> 32;
+    }
+    u64 cur = (u64)t[i + kWords] + c + e;
+    t[i + kWords] = (u32)cur;
+    e = (u32)(cur >> 32);
+  }
+  reduce_once(r, t + kWords, e);
+#endif
+}
+
+// x^5 with both squares as mont_sqr: 2 x 100 + 128 wide multiply-adds
+IMT_HD void pow5_sqr(Fr& x) {
+  Fr x2, x4;
+  mont_sqr(x2, x);
+  mont_sqr(x4, x2);
+  mont_mul_cc(x, x4, x);
+}
+
+// add constants, S-box on every word, dense MDS by dots
+IMT_HD void full_round_lazy(Fr st[kT], const Fr rc[kT], const Fr mds[kT][kT]) {
+  Fr s[kT];
+#pragma unroll
+  for (int i = 0; i < kT; ++i) {
+    add_mod_cc(s[i], st[i], rc[i]);
+    pow5_sqr(s[i]);
+  }
+#pragma unroll
+  for (int i = 0; i < kT; ++i) mont_dot3(st[i], mds[i], s);
+}
+
+// One permutation on permute_sparse's schedule, each dot reduced once: row
+// 0 of a partial round is (m00, v1, v2) . (s, x1, x2).
+IMT_HD void permute_lazy(Fr st[kT], const Consts& c) {
+#pragma unroll 1
+  for (int r = 0; r < kHalf - 1; ++r) full_round_lazy(st, c.pre[r], c.mds);
+  full_round_lazy(st, c.pre[kHalf - 1], c.mds_pre);
+#pragma unroll 1
+  for (int r = 0; r < kRP; ++r) {
+    const Fr* m = c.sparse[r];
+    Fr b[kT], p;
+    add_mod_cc(b[0], st[0], c.c0[r]);
+    pow5_sqr(b[0]);
+    b[1] = st[1];
+    b[2] = st[2];
+    mont_dot3(st[0], m, b);
+    mont_mul_cc(p, m[3], b[0]);
+    add_mod_cc(st[1], st[1], p);
+    mont_mul_cc(p, m[4], b[0]);
+    add_mod_cc(st[2], st[2], p);
+  }
+#pragma unroll 1
+  for (int r = 0; r < kHalf; ++r) full_round_lazy(st, c.post[r], c.mds);
+}
+
 // ---- per-lane bodies (limb-major global layouts, B lanes) ------------------
 
 IMT_HD void load_node(Fr& x, const u32* src, long long B, long long lane) {
@@ -467,7 +846,8 @@ IMT_HD void permute_lane(const u32* in, u32* out, long long B, long long lane,
   Fr st[kT];
 #pragma unroll
   for (int j = 0; j < kT; ++j) load_node(st[j], in + j * kWords * B, B, lane);
-  for (int n = 0; n < n_perms; ++n) permute(st, c);
+#pragma unroll 1
+  for (int n = 0; n < n_perms; ++n) permute_lazy(st, c);
 #pragma unroll
   for (int j = 0; j < kT; ++j) store_node(out + j * kWords * B, st[j], B, lane);
 }
@@ -538,13 +918,29 @@ namespace {
 
 constexpr int kBlock = 128;
 
+// K1's launch shape: threads per block, and the blocks per SM that
+// __launch_bounds__ asks registers to leave room for.  tools/
+// k1_launch_torch.py builds other values with -D to measure them.
+#ifndef IMT_K1_BLOCK
+#define IMT_K1_BLOCK 128
+#endif
+#ifndef IMT_K1_MIN_BLOCKS
+#define IMT_K1_MIN_BLOCKS 1
+#endif
+constexpr int kK1Block = IMT_K1_BLOCK;
+
 __constant__ Consts g_consts;
 
 __device__ __forceinline__ long long lane_id() {
   return (long long)blockIdx.x * blockDim.x + threadIdx.x;
 }
 
-__global__ void __launch_bounds__(kBlock)
+// K1: n_perms chained permutations per lane (imt_tpu's _permute_fn,
+// poseidon_rns_pallas.py:1199), 192 B per lane against some 65K multiply-
+// adds per permutation, so bound by operations at every width.  Caps of 128
+// registers spill here; at the default (150 registers, 3 blocks of 128 per
+// SM) it runs 2^17 lanes in 2.6 waves and 66,560 in 1.3.
+__global__ void __launch_bounds__(kK1Block, IMT_K1_MIN_BLOCKS)
 permute_kernel(const u32* in, u32* out, long long B, int n_perms) {
   const long long lane = lane_id();
   if (lane >= B) return;
@@ -601,7 +997,8 @@ int imt_init_constants(const u32* words, long long n_words) {
 int imt_permute_n(const void* in, void* out, long long B, int n_perms,
                   void* stream) {
   if (B > 0) {
-    permute_kernel<<<grid_for(B), kBlock, 0, (cudaStream_t)stream>>>(
+    const unsigned grid = (unsigned)((B + kK1Block - 1) / kK1Block);
+    permute_kernel<<<grid, kK1Block, 0, (cudaStream_t)stream>>>(
         (const u32*)in, (u32*)out, B, n_perms);
   }
   return (int)cudaGetLastError();

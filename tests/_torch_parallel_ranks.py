@@ -5,8 +5,11 @@ single-device trees those tests hold them against.
 Each scenario is a function of a tree (or a mesh) that returns its
 outputs as numpy; the ranks run it on ``ShardedIndexedMerkleTree``s over
 gloo (chip_smoke.py's ``start_ranks``), the tests run it on the port's
-single-device trees (and some of it on ``imt_tpu``'s) and compare.  This
-file imports neither jax nor imt_tpu: the ranks load it.
+single-device trees and compare.  The programs and references run under
+``torch.inference_mode``: the plain hashes are thousands of tiny tensor
+ops, and without autograd's bookkeeping each op dispatches faster (the
+same bits).  This file imports neither jax nor imt_tpu: the ranks load
+it.
 """
 
 from __future__ import annotations
@@ -129,14 +132,14 @@ def resumed(tree, prefix: str) -> dict:
     return out
 
 
-# imt_tpu's chained program (tests/test_torch_chained.py's shape: a sparse
-# depth-6 tree holding 2^4 slots), then queries
+# tests/test_torch_chained.py's chain and queries (a sparse depth-6 tree
+# holding 2^4 slots), which that file holds against imt_tpu's
 J_FULL, J_CAP = 6, 4
 J_BATCHES = [[30, 10, 2 ** 250, 10], [2 ** 250, 50, 35, 0]]
 J_QUERIES = [11, 30, 0, 2 ** 250 + 1]
 
 
-def jax_chain(tree) -> dict:
+def chain_and_queries(tree) -> dict:
     out = {"j.oks": np_(tree.insert_batches(np.stack(
         [packed(b) for b in J_BATCHES])))}
     out.update(fields("j.ni", tree.non_inclusion_witness(packed(J_QUERIES)),
@@ -166,6 +169,7 @@ def witness_part(tree) -> dict:
     return out
 
 
+@torch.inference_mode()
 def planner(tree) -> dict:
     out = witness_part(tree)
     out["l.ok"] = np_(tree.insert_batch(packed(L_B)))
@@ -190,6 +194,7 @@ def plain_snapshot(path: str):
     return snap
 
 
+@torch.inference_mode()
 def parallel_reference(snap) -> dict:
     """test_torch_parallel.py's scenarios on the port's single-device
     trees (`snap`: the plain snapshot's tree)."""
@@ -200,7 +205,8 @@ def parallel_reference(snap) -> dict:
     out.update(one_device(IndexedMerkleTree(C_DEPTH, device=CPU)))
     out.update(state(snap, "pk"))
     out.update(state(IndexedMerkleTree(C_DEPTH, device=CPU), "cfg"))
-    out.update(jax_chain(SparseIndexedMerkleTree(J_FULL, J_CAP, device=CPU)))
+    out.update(chain_and_queries(SparseIndexedMerkleTree(J_FULL, J_CAP,
+                                                         device=CPU)))
     return out
 
 
@@ -223,6 +229,7 @@ def _counting(module):
     return [mock.patch.object(module, n, wrap(n)) for n in PROGRAMS], counts
 
 
+@torch.inference_mode()
 def parallel_ranks(rank: int, world: int, work_dir: str,
                    plain_snapshot: str) -> dict:
     """tests/test_torch_parallel.py's program, on 4 ranks."""
@@ -292,11 +299,12 @@ def parallel_ranks(rank: int, world: int, work_dir: str,
                        str(cfg.device))
     out.update(state(cfg, "cfg"))
 
-    out.update(jax_chain(ShardedIndexedMerkleTree(
+    out.update(chain_and_queries(ShardedIndexedMerkleTree(
         J_FULL, m4, sparse=True, initial_capacity_log2=J_CAP, device=CPU)))
     return out
 
 
+@torch.inference_mode()
 def local_plan_ranks(rank: int, world: int) -> dict:
     """tests/test_torch_local_plan.py's program, on 2 ranks: the planner
     scenario, then the byte audit, clean and with a full-state gather

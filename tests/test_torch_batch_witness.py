@@ -27,6 +27,7 @@ from imt_tpu.tree.sparse import SparseIndexedMerkleTree as JaxSparseTree
 from imt_tpu_torch import IndexedMerkleTree, SparseIndexedMerkleTree
 from imt_tpu_torch.ops import field, hashing
 from imt_tpu_torch.tree import batch_witness, indexed
+from _torch_inference import inference_mode  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -6,7 +6,8 @@ One imt_tpu program, compiled once for the module: two chained batches of
 K = 4 (an intra-batch duplicate, a duplicate of the first batch, zero) into
 a sparse tree of full depth 6 with an active prefix of 2^4 slots, from
 packed limbs.  The port's sparse tree starts from 2^1 slots, so it grows
-on the way; its masks, state and root must equal imt_tpu's.  Then the
+on the way; its masks, state and root must equal imt_tpu's, and so must
+its non-inclusion witnesses of four queries on that state.  Then the
 port's own paths: insert_batches equals the same batches through
 insert_batch one by one, on the dense tree and on the sparse one, whose
 active levels equal the dense tree's.  Tolerance: exact.
@@ -20,6 +21,7 @@ from imt_tpu.tree.sparse import SparseIndexedMerkleTree as JaxSparseTree
 from imt_tpu_torch import IndexedMerkleTree, SparseIndexedMerkleTree
 from imt_tpu_torch.ops import field
 from imt_tpu_torch.tree import indexed
+from _torch_inference import inference_mode  # noqa: F401
 
 torch.set_num_threads(1)
 
@@ -28,6 +30,8 @@ FULL = 6
 BATCHES = [[30, 10, 2 ** 250, 10], [2 ** 250, 50, 35, 0]]
 PACKED = np.stack([field.ints_to_limbs(b).astype(np.uint32)
                    for b in BATCHES])
+# after the chain: absent, present, zero and absent beside a present value
+QUERIES = [11, 30, 0, 2 ** 250 + 1]
 
 
 @pytest.fixture(scope="module")
@@ -51,6 +55,24 @@ def test_insert_batches_matches_imt_tpu(chained):
         assert np.asarray(b[key]).dtype == np.asarray(a[key]).dtype, key
         assert np.array_equal(np.asarray(a[key]), b[key]), key
     assert tt.get_root_int() == jt.get_root_int()
+
+
+@pytest.fixture(scope="module")
+def queries(chained):
+    jt, tt, _, _ = chained
+    q = field.ints_to_limbs(QUERIES).astype(np.uint32)
+    return jt.non_inclusion_witness(q), tt.non_inclusion_witness(q)
+
+
+@pytest.mark.parametrize("name", list(
+    indexed.NonInclusionWitness.__dataclass_fields__))
+def test_queries_match_imt_tpu(queries, name):
+    """Non-inclusion witnesses on the chained state, every lane (the state
+    tests/test_torch_parallel.py's sharded tree is held to)."""
+    a = np.asarray(getattr(queries[0], name)).astype(np.int64)
+    b = getattr(queries[1], name)
+    b = np.asarray(b.numpy() if isinstance(b, torch.Tensor) else b)
+    assert a.shape == b.shape and np.array_equal(a, b.astype(np.int64)), name
 
 
 def test_insert_batches_equals_a_loop_of_insert_batch(chained):

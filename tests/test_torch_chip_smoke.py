@@ -2,7 +2,7 @@
 path on CPU tensors, phase 6's host-side checkers and phase 7's (the
 resume's launch expectations, the group's set semantics, the trace's
 kernel events, the plain version in chunks) on small inputs, its kernel
-record and SASS census, and its refusal to run without CUDA or outside a
+record and SASS censuses, and its refusal to run without CUDA or outside a
 checkout."""
 
 import os
@@ -16,6 +16,7 @@ import torch
 from imt_tpu_torch.ops import field, vpu_roofline
 from imt_tpu_torch.tree import indexed, reference_oracle
 from imt_tpu_torch.tree.sparse import SparseIndexedMerkleTree
+from _torch_inference import inference_mode  # noqa: F401
 
 torch.set_num_threads(1)
 
@@ -38,8 +39,10 @@ def _run(cwd, script):
 
 
 def test_small_replay_matches_oracle_on_cpu():
+    """At depth 5, the least that holds its 24 values (the card runs it at
+    depth 6): the same batches, duplicates, zeros and chains."""
     _smoke_module().replay_small(indexed, reference_oracle,
-                                 torch.device("cpu"))
+                                 torch.device("cpu"), depth=5)
 
 
 def test_kernel_record_names_the_replaced_code():
@@ -73,49 +76,68 @@ def test_kernel_record_names_the_replaced_code():
     assert all(launched[b] == 1 for b in bodies)
 
 
-def _fake_sass(every: dict, cond: dict) -> str:
-    """A permute_kernel listing shaped like the built one: a perms loop
-    around a round loop whose one forward branch skips a block."""
+def _fake_k1_sass(full: dict, partial: dict, straight: dict) -> str:
+    """A permute_kernel listing shaped like the built one: straight code
+    (the loads), a perms loop around one sparse-core permutation (a
+    full-round loop, a full round, a partial-round loop, a full-round
+    loop), then straight code again (the stores)."""
     lines = ["\t\tFunction : _ZN4anon14permute_kernelEPKjPjxi"]
-    addr = [0x100]
+    addr = [0]
 
     def emit(op, args="RZ"):
         lines.append(f"        /*{addr[0]:04x}*/                   {op} "
                      f"{args} ;  /* 0x0 */")
         addr[0] += 16
 
-    perms_lo = addr[0]
+    def block(body, loop):
+        top = addr[0]
+        for op, n in body.items():
+            for _ in range(n):
+                emit(op)
+        if loop:
+            emit("@P0 BRA", f"{top:#x}")
+
+    block(straight, False)
+    perms = addr[0]
     emit("IMAD.MOV.U32")
-    rounds_lo = addr[0]
-    for op, n in every.items():
-        for _ in range(n):
-            emit(op)
-    skip_at = addr[0]
-    emit("@!P1 BRA", "0x0")                   # patched below
-    for op, n in cond.items():
-        for _ in range(n):
-            emit(op)
-    lines[-1 - sum(cond.values())] = lines[-1 - sum(cond.values())].replace(
-        "BRA 0x0", f"BRA {addr[0]:#x}")
-    assert f"{skip_at:04x}" in lines[-1 - sum(cond.values())]
-    emit("@P1 BRA", f"{rounds_lo:#x}")
-    emit("@!P6 BRA", f"{perms_lo:#x}")
+    for body, loop in ((full, True), (full, False), (partial, True),
+                       (full, True)):
+        block(body, loop)
+    emit("@!P6 BRA", f"{perms:#x}")
+    block(straight, False)
     emit("EXIT", "")
     return "\n".join(lines) + "\n\t\tFunction : other\n"
 
 
-def test_sass_census_counts_the_round_loop():
+def test_k1_census_counts_the_perms_loop():
+    """K1's census counts one trip of the perms loop, its round loops 3, 57
+    and 4 times, and nothing outside it; it holds the multiplies to the
+    source's count of K1's core, and refuses another loop structure."""
     smoke = _smoke_module()
-    every = {"IMAD.WIDE.U32": 1440, "IMAD.HI.U32": 96, "IMAD": 97,
-             "IADD3": 3}
-    cond = {"IMAD.WIDE.U32": 720, "IMAD.HI.U32": 48, "IMAD": 48}
-    per = smoke.sass_census(_fake_sass(every, cond))
-    assert per["IMAD.WIDE.U32"] == 65 * 1440 + 8 * 720
-    assert per["IMAD.HI.U32"] + per["IMAD.WIDE.U32"] == 828 * 128
-    assert per["IMAD"] == 65 * 97 + 8 * 48 and per["IADD3"] == 65 * 3
+    # a full round: 3 products, 6 squares (100 wide each) and 3 dots (256);
+    # a partial round: 3 products, 2 squares and a dot
+    full = {"IMAD.WIDE.U32": 3 * 128 + 6 * 100 + 3 * 256, "IMAD": 12 * 8,
+            "IADD3.X": 30}
+    partial = {"IMAD.WIDE.U32": 3 * 128 + 2 * 100 + 256, "IMAD": 6 * 8,
+               "IADD3.X": 11}
+    straight = {"LDG.E": 24, "IMAD.WIDE.U32": 2}
+    per = smoke.k1_census(_fake_k1_sass(full, partial, straight))
+    assert per["IMAD.WIDE.U32"] == smoke.K1_WORK[0] == 61896 == \
+        smoke.least_perm_work(1)[0]
+    assert per["IMAD"] == smoke.K1_WORK[1] == 3504
+    assert per["IMAD.MOV.U32"] == 1 and per["IADD3.X"] == 8 * 30 + 57 * 11
+    assert "LDG.E" not in per and per["BRA"] == 3 + 57 + 4 + 1
     with pytest.raises(AssertionError, match="wide multiplies"):
-        smoke.sass_census(_fake_sass(dict(every, IADD3=3, **{
-            "IMAD.WIDE.U32": 1441}), cond))
+        smoke.k1_census(_fake_k1_sass(
+            full, dict(partial, **{"IMAD.WIDE.U32": 839}), {}))
+    with pytest.raises(AssertionError, match="wide multiplies"):
+        smoke.k1_census(_fake_k1_sass(
+            full, dict(partial, **{"IMAD.WIDE.U32": 841}), {}))
+    with pytest.raises(AssertionError, match="IMAD"):
+        smoke.k1_census(_fake_k1_sass(full, dict(partial, IMAD=47), {}))
+    with pytest.raises(AssertionError, match="expected 4 loops"):
+        smoke.k1_census(_fake_hash2_sass(full, partial, straight).replace(
+            "hash2_kernel", "permute_kernel"))
 
 
 def _fake_hash2_sass(full: dict, partial: dict, straight: dict) -> str:
@@ -172,7 +194,7 @@ def test_sparse_census_counts_both_permutations():
         smoke.sparse_census(_fake_hash2_sass(
             full, dict(partial, **{"IMAD.WIDE.U32": 8 * 128 + 1}), {}))
     with pytest.raises(AssertionError, match="6 disjoint loops"):
-        smoke.sparse_census(_fake_sass({"IMAD": 1}, {"IMAD": 1}).replace(
+        smoke.sparse_census(_fake_k1_sass(full, partial, {}).replace(
             "permute_kernel", "hash2_kernel"))
 
 
@@ -211,7 +233,7 @@ def test_bound_counts_the_least_work_schedule():
     assert poseidon_opt.permute_opt_lazy(
         state, poseidon_opt.optimize_params(params), 2) == \
         poseidon_ref.permute(state, params)
-    assert sum(smoke.PERM_WORK) * 1.7 < smoke.MONT_PER_PERM * (
+    assert sum(smoke.PERM_WORK) * 1.25 < smoke.SPARSE_MONT_PER_PERM * (
         smoke.WIDE_PER_MONT + smoke.NARROW_PER_MONT)
 
 
@@ -366,8 +388,10 @@ def test_phase3_plain_in_chunks_equals_one_call():
 
 
 def test_golden_path_matches_oracle_on_cpu():
+    """At depth 3, the least that holds its 6 values (the card runs it at
+    depth 6): every witness field and root of each insert."""
     _smoke_module().golden_path(indexed, reference_oracle, field,
-                                torch.device("cpu"))
+                                torch.device("cpu"), depth=3)
 
 
 def test_exits_nonzero_without_cuda():

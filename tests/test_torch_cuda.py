@@ -21,6 +21,7 @@ from imt_tpu_torch import (FIELD_MODULUS, IndexedMerkleTree, MerkleTree,
 from imt_tpu_torch.ops import (field, poseidon, poseidon_cuda, vpu_roofline,
                                vpu_roofline_cuda)
 from imt_tpu_torch.tree import indexed
+from _torch_inference import inference_mode  # noqa: F401
 
 pytestmark = pytest.mark.cuda
 

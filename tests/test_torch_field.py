@@ -13,6 +13,7 @@ import jax.numpy as jnp
 
 from imt_tpu.ops import field as jfield
 from imt_tpu_torch.ops import field
+from _torch_inference import inference_mode  # noqa: F401
 
 torch.set_num_threads(1)
 

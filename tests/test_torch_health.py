@@ -25,6 +25,7 @@ from imt_tpu_torch.tree import indexed
 from imt_tpu_torch.utils import health
 from imt_tpu_torch.utils.health import TreeCorruption, Watchdog, check_tree
 from imt_tpu_torch.utils.observability import GLOBAL_METRICS
+from _torch_inference import inference_mode  # noqa: F401
 
 torch.set_num_threads(1)
 

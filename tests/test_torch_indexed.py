@@ -22,6 +22,7 @@ from imt_tpu.tree import indexed as jindexed
 from imt_tpu_torch import FIELD_MODULUS, ZERO_LEAF_HASH, IndexedMerkleTree
 from imt_tpu_torch.ops import hashing
 from imt_tpu_torch.tree import indexed
+from _torch_inference import inference_mode  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -12,8 +12,9 @@ slots 15..18 grow the tree and straddle the new shard boundary (a value
 >= p, a duplicate), a chain of three (a duplicate across batches, a zero,
 a value >= p), then the byte audit at depths 3 and 5, clean and with a
 full-state gather slipped into the insert program.  Meanwhile this process
-runs the scenario on the port's single-device tree and the witness
-batches through imt_tpu's (tests/test_torch_batch_witness.py's program).
+runs the scenario on the port's single-device tree; the witness batches
+are tests/test_torch_batch_witness.py's, which holds that tree's witness
+batches against imt_tpu's.
 Without a spawn: ``_rank_plan`` against imt_tpu's on seeded inputs,
 ``hash_count`` against imt_tpu's, and the masked scatter.  Tolerance:
 exact.
@@ -26,10 +27,11 @@ import numpy as np
 import pytest
 import torch
 
+import test_torch_batch_witness as batch_witness
 from imt_tpu.parallel import local_plan as jlocal_plan
-from imt_tpu.tree.sparse import SparseIndexedMerkleTree as JaxSparseTree
 from imt_tpu_torch.ops import field
 from imt_tpu_torch.parallel import collective_audit, local_plan
+from _torch_inference import inference_mode  # noqa: F401
 
 torch.set_num_threads(1)
 
@@ -62,12 +64,21 @@ def run(tmp_path_factory):
     try:
         ref = R.planner(R.SparseIndexedMerkleTree(R.W_FULL, R.W_CAP,
                                                   device=R.CPU))
-        jax = R.witness_part(JaxSparseTree(R.W_FULL,
-                                           initial_capacity_log2=R.W_CAP))
     except BaseException:
         ranks.kill()
         raise
-    return ranks.wait(), ref, jax
+    return ranks.wait(), ref
+
+
+def test_witness_inputs_are_the_imt_tpu_held_ones():
+    """The witness batches are tests/test_torch_batch_witness.py's, which
+    holds the port's single-device tree against imt_tpu's on them
+    (test_witness_batch_matches_imt_tpu, every field of every lane;
+    test_masks_state_and_root_match_imt_tpu): what the tests below hold
+    the sharded program to is imt_tpu's result."""
+    assert (R.W_FULL, R.W_CAP, R.W_B1, R.W_B2) == (
+        batch_witness.FULL, batch_witness.ACTIVE, batch_witness.B1,
+        batch_witness.B2)
 
 
 def _equal(a, b) -> bool:
@@ -79,12 +90,12 @@ def _equal(a, b) -> bool:
 @pytest.mark.parametrize("name", R.INSERT_FIELDS)
 def test_witness_batches_match_imt_tpu(run, batch, name):
     """Every lane, rejected ones included, of both witness batches: the
-    sharded program's equal imt_tpu's and the port's single device's."""
-    ranks, ref, jax = run
+    sharded program's equal the port's single device's (imt_tpu's, as
+    test_witness_inputs_are_the_imt_tpu_held_ones says) on both ranks."""
+    ranks, ref = run
     key = f"w{batch}.{name}"
-    assert _equal(ranks[0][key], jax[key]), key
-    assert _equal(ranks[1][key], jax[key]), key
-    assert _equal(ref[key], jax[key]), key
+    assert _equal(ranks[0][key], ref[key]), key
+    assert _equal(ranks[1][key], ref[key]), key
 
 
 def test_duplicate_of_a_present_value_through_the_witness_program(run):
@@ -97,8 +108,9 @@ def test_duplicate_of_a_present_value_through_the_witness_program(run):
 @pytest.mark.parametrize("key", ["w.vals", "w.next_vals", "w.next_idxs",
                                  "w.count", "w.root", "w.depth", "w.sparse"])
 def test_state_after_the_witness_batches_matches_imt_tpu(run, key):
-    ranks, _, jax = run
-    assert _equal(ranks[0][key], jax[key]), key
+    ranks, ref = run
+    for r in ranks:
+        assert _equal(r[key], ref[key]), key
 
 
 @pytest.mark.parametrize("key", ["l.ok", "l.ad", "l.root", "l.oks", "l.vals",
@@ -108,7 +120,7 @@ def test_growth_straddle_and_chain_match_single_device(run, key):
     """The batch that grows the prefix from 16 to 32 slots (8 -> 16 per
     rank) with slots 15..18 across the new boundary, then the chain of
     three: masks, active depth and state equal the single device's."""
-    ranks, ref, _ = run
+    ranks, ref = run
     assert ref["l.ad"] == 5 and ref["l.ok"].tolist() == [True, True, True,
                                                           False]
     assert ref["l.oks"].tolist() == [[True, True], [False, False],

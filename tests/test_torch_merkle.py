@@ -19,6 +19,7 @@ from imt_tpu_torch import MerkleTree
 from imt_tpu_torch.ops import field, gates
 from imt_tpu_torch.tree import merkle
 from imt_tpu_torch.tree.reference_oracle import OracleTree
+from _torch_inference import inference_mode  # noqa: F401
 
 torch.set_num_threads(1)
 

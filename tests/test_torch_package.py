@@ -10,6 +10,7 @@ import torch
 
 from imt_tpu_torch.ops import (_build, hashing, poseidon_cuda, vpu_roofline,
                                vpu_roofline_cuda)
+from _torch_inference import inference_mode  # noqa: F401
 
 torch.set_num_threads(1)
 
@@ -30,7 +31,7 @@ MODULES = [
     "imt_tpu_torch.parallel.local_plan", "imt_tpu_torch.parallel.sharded",
     "imt_tpu_torch.parallel.collective_audit",
 ]
-TOOLS = ["tools/soak_indexed_torch.py"]
+TOOLS = ["tools/soak_indexed_torch.py", "tools/k1_launch_torch.py"]
 
 
 def test_import_leaves_jax_and_imt_tpu_out():

@@ -5,9 +5,9 @@ The counterpart of tests/test_parallel.py.  One spawn of four ranks
 ``file://`` store in the test's directory, a 120 s timeout: a rank that
 fails or hangs fails the module)
 runs tests/_torch_parallel_ranks.py's ``parallel_ranks``; meanwhile this
-process runs the same scenarios on the port's single-device trees and
-imt_tpu's chained program (tests/test_torch_chained.py's shape) with its
-non-inclusion witnesses.  Held bit for bit: the meshes (1-D of 4, 2 and 1
+process runs the same scenarios on the port's single-device trees (among
+them tests/test_torch_chained.py's chain and queries, which that file holds
+against imt_tpu's).  Held bit for bit: the meshes (1-D of 4, 2 and 1
 ranks, 2 x 2), the data-parallel hashes, the 1-D and 2-D tree builds
 against MerkleTree, the sharded container at D = 4 (insert_batch across a
 shard boundary with duplicates, a zero and a value >= p; insert; a
@@ -26,9 +26,10 @@ import numpy as np
 import pytest
 import torch
 
-from imt_tpu.tree.sparse import SparseIndexedMerkleTree as JaxSparseTree
+import test_torch_chained as chained
 from imt_tpu_torch.ops import field, hashing
 from imt_tpu_torch.tree.merkle import MerkleTree
+from _torch_inference import inference_mode  # noqa: F401
 
 torch.set_num_threads(1)
 
@@ -63,12 +64,10 @@ def run(tmp_path_factory):
         dict(work_dir=work, plain_snapshot=plain), work, TIMEOUT)
     try:
         ref = R.parallel_reference(snap)
-        jt = JaxSparseTree(R.J_FULL, initial_capacity_log2=R.J_CAP)
-        jax = R.jax_chain(jt)
     except BaseException:
         ranks.kill()
         raise
-    return ranks.wait(), ref, jax
+    return ranks.wait(), ref
 
 
 def _equal(a, b) -> bool:
@@ -140,7 +139,7 @@ CONTAINER_KEYS = (["c.ok1", "c.root1", "c.root", "c.count", "c.depth",
 
 @pytest.mark.parametrize("key", CONTAINER_KEYS)
 def test_container_state_matches_single_device(run, key):
-    ranks, ref, _ = run
+    ranks, ref = run
     assert ranks[0]["c.sharded"]
     assert _equal(ranks[0][key], ref[key]), key
 
@@ -152,7 +151,7 @@ def test_container_witnesses_match_single_device(run, part, name):
     """insert (a K = 1 witness batch), the witness batch (P + 5, a
     duplicate of 30) and the non-inclusion witnesses (present values,
     zero, a value >= p): every lane."""
-    ranks, ref, _ = run
+    ranks, ref = run
     key = f"c.{part}.{name}"
     assert _equal(ranks[0][key], ref[key]), key
 
@@ -161,7 +160,7 @@ def test_container_witnesses_match_single_device(run, part, name):
 def test_insert_seq_matches_sequential_on_accepted_lanes(run, name):
     """insert_seq is the witness batch when sharded: equal to sequential
     inserts on its accepted lanes (42 is present: rejected)."""
-    ranks, ref, _ = run
+    ranks, ref = run
     ok = ref["c.seq.ok"]
     assert ok.tolist() == [True, False, True]
     assert np.array_equal(ranks[0]["c.seq.ok"], ok)
@@ -174,7 +173,7 @@ def test_growth_crosses_the_sharding_threshold(run):
     plain step, no shard-local program) until it holds 8 slots, then
     sharded, then re-sharded at 16; masks and state equal the single
     device's."""
-    ranks, ref, _ = run
+    ranks, ref = run
     r = ranks[0]
     assert [r[f"g.ad{i}"] for i in range(3)] == [2, 3, 4] == [
         ref[f"g.ad{i}"] for i in range(3)]
@@ -202,7 +201,7 @@ def test_growth_moves_only_the_new_slices(run):
 def test_one_device_mesh_routes_to_plain_step(run):
     """D = 1 (tests/test_parallel.py:146): no shard-local program runs
     (each raises if called), and the results are the plain tree's."""
-    ranks, ref, _ = run
+    ranks, ref = run
     for r in ranks:
         assert r["one.sharded"] is False
         for key in [k for k in ref if k.startswith("one.")]:
@@ -213,7 +212,7 @@ def test_checkpoint_saved_at_d4_loads_at_d2(run):
     """The sharded snapshot carries the marker; loaded onto a 2-rank mesh
     it is sharded there, with the root and count it was saved with, and
     takes the next batch as the single-device tree does."""
-    ranks, ref, _ = run
+    ranks, ref = run
     r = ranks[0]
     assert r["ck.marker"] == 1
     assert r["ck.kind"] == ("ShardedIndexedMerkleTree", 2, True)
@@ -223,7 +222,7 @@ def test_checkpoint_saved_at_d4_loads_at_d2(run):
 
 
 def test_plain_snapshot_onto_a_mesh(run):
-    ranks, ref, _ = run
+    ranks, ref = run
     r = ranks[0]
     assert r["pk.kind"] == ("ShardedIndexedMerkleTree", 4, True)
     for key in [k for k in ref if k.startswith("pk.")]:
@@ -231,7 +230,7 @@ def test_plain_snapshot_onto_a_mesh(run):
 
 
 def test_engine_config_builds_the_sharded_tree(run):
-    ranks, ref, _ = run
+    ranks, ref = run
     for r in ranks:
         assert r["cfg.kind"] == ("ShardedIndexedMerkleTree", 2, True, "cpu")
         for key in [k for k in ref if k.startswith("cfg.")]:
@@ -242,9 +241,13 @@ def test_engine_config_builds_the_sharded_tree(run):
                                  "j.next_vals", "j.next_idxs", "j.sparse"]
                          + [f"j.ni.{n}" for n in R.QUERY_FIELDS])
 def test_chain_and_queries_match_imt_tpu(run, key):
-    """imt_tpu's chained insert_batches and its non-inclusion witnesses on
-    a sparse depth-6 tree holding 2^4 slots (4 per rank): the sharded
-    tree's, bit for bit (and the port's single-device tree's)."""
-    ranks, ref, jax = run
-    assert _equal(ranks[0][key], jax[key]), key
-    assert _equal(ref[key], jax[key]), key
+    """The chained insert_batches and the non-inclusion witnesses on a
+    sparse depth-6 tree holding 2^4 slots (4 per rank): the sharded tree's
+    equal the port's single-device tree's, bit for bit, on every rank.
+    The single-device tree's equal imt_tpu's on the same batches and
+    queries in tests/test_torch_chained.py
+    (test_insert_batches_matches_imt_tpu, test_queries_match_imt_tpu)."""
+    ranks, ref = run
+    assert (R.J_BATCHES, R.J_QUERIES) == (chained.BATCHES, chained.QUERIES)
+    for r in ranks:
+        assert _equal(r[key], ref[key]), key

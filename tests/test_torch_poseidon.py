@@ -21,6 +21,7 @@ from imt_tpu.ops import poseidon_rns_pallas as pk
 from imt_tpu_torch.ops import field, hashing, poseidon
 from imt_tpu_torch.ops.poseidon_ref import hash_fixed
 from imt_tpu_torch.ops.poseidon_spec import default_params, default_spec
+from _torch_inference import inference_mode  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -3,14 +3,14 @@
 Everything in ``csrc/poseidon_bn254.cu`` outside ``#ifdef __CUDACC__`` is
 plain C++: a small harness includes the source, ``g++`` builds it into a
 shared library, and ``ctypes`` runs the per-lane bodies of the hash kernels
-(``hash2_lane``, ``hash3_lane``: the sparse core), both permutation cores
-and the limb <-> node conversions on numpy-seeded lanes, with the edge
-values 0, p - 1, p and 2^256 - 1 among them.  The results must equal the
-plain torch version (``ops/poseidon.py``)
-bit for bit.  On the host the carry-chained functions run the C++ branch of
-the same arithmetic; the PTX branch runs only on the card
-(``tests/test_torch_cuda.py``, ``chip_smoke.py``).  Skips where there is no
-``g++``.
+(``hash2_lane``, ``hash3_lane``: the sparse core), K1's body
+(``permute_lane``, n_perms 1, 2 and 3) and the limb <-> node conversions
+on numpy-seeded lanes, with the edge values 0, p - 1, p and 2^256 - 1
+among them (and the node words 0 and p - 1).  The results must equal the
+plain torch version (``ops/poseidon.py``) bit for bit.  On the host the
+carry-chained functions run the C++ branch of the same arithmetic; the PTX
+branch runs only on the card (``tests/test_torch_cuda.py``,
+``chip_smoke.py``).  Skips where there is no ``g++``.
 """
 
 import ctypes
@@ -24,6 +24,7 @@ import torch
 
 from imt_tpu_torch.ops import field, poseidon
 from imt_tpu_torch.ops.poseidon_spec import kernel_words
+from _torch_inference import inference_mode  # noqa: F401
 
 torch.set_num_threads(1)
 
@@ -59,11 +60,11 @@ void h_nodes_to_limbs(const u32* in, u32* out, long long B) {
   for (long long i = 0; i < B; ++i) nodes_to_limbs_lane(in, out, B, i);
 }
 
-// n chained permutations of states [3, 8, B]: the sparse core if sparse,
-// else the dense core (permute_lane, as permute_kernel runs it)
-void h_permute(const u32* in, u32* out, long long B, int n, int sparse) {
+// n chained permutations of states [3, 8, B]: K1's body (permute_lane, as
+// permute_kernel runs it) if k1, else the sparse core chained n times
+void h_permute(const u32* in, u32* out, long long B, int n, int k1) {
   for (long long i = 0; i < B; ++i) {
-    if (!sparse) {
+    if (k1) {
       permute_lane(in, out, B, i, n, g_host);
       continue;
     }
@@ -79,13 +80,13 @@ void h_permute(const u32* in, u32* out, long long B, int n, int sparse) {
 LANES = 64
 
 
-@pytest.fixture(scope="module")
-def lib(tmp_path_factory):
+def build_harness(directory):
+    """The harness built by g++ into `directory` and loaded, its tables
+    set; skips where there is no g++."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("needs g++ to build the kernel's host arithmetic")
-    d = tmp_path_factory.mktemp("poseidon_host")
-    src, so = d / "harness.cpp", d / "libharness.so"
+    src, so = directory / "harness.cpp", directory / "libharness.so"
     src.write_text(HARNESS % SOURCE)
     subprocess.run([gxx, "-x", "c++", "-std=c++17", "-O1", "-shared",
                     "-fPIC", "-o", str(so), str(src)], check=True,
@@ -101,6 +102,18 @@ def lib(tmp_path_factory):
     assert h.h_init(words.ctypes.data_as(P), words.size) == 0
     assert h.h_init(words.ctypes.data_as(P), words.size - 1) == -1
     return h
+
+
+def k1(h, st: torch.Tensor, n: int) -> torch.Tensor:
+    """K1's kernel body on the host: n chained permutations of node states
+    int32[3, 8, B]."""
+    return _call(lambda i, o, w: h.h_permute(i, o, w, n, 1),
+                 tuple(st.shape), st)
+
+
+@pytest.fixture(scope="module")
+def lib(tmp_path_factory):
+    return build_harness(tmp_path_factory.mktemp("poseidon_host"))
 
 
 def _limbs(seed: int) -> torch.Tensor:
@@ -132,12 +145,29 @@ def test_hash3_lane_equals_plain(lib):
     assert torch.equal(got, poseidon.hash3_leaf(a, b, c))
 
 
-@pytest.mark.parametrize("sparse", [1, 0], ids=["sparse", "dense"])
-def test_permutation_cores_equal_plain(lib, sparse):
+def _states() -> torch.Tensor:
+    """Node states int32[3, 8, LANES]: seeded values, edge values among
+    them, and the node words 0 and p - 1 in their own lanes."""
     st = torch.stack([poseidon.limbs_to_nodes(_limbs(s)) for s in (6, 7, 8)])
-    got = _call(lambda i, o, w: lib.h_permute(i, o, w, 2, sparse),
-                (3, 8, LANES), st)
-    assert torch.equal(got, poseidon.permute_n(st, 2))
+    word = lambda v: torch.as_tensor(np.array(
+        [(v >> (32 * i)) & 0xFFFFFFFF for i in range(field.WORDS)],
+        dtype=np.uint32).view(np.int32))
+    for j in range(3):
+        st[j, :, 10 + j] = word(0)
+        st[j, :, 13] = st[j, :, 14 + j] = word(field.P - 1)
+    return st
+
+
+@pytest.mark.parametrize("core,n", [("sparse", 2), ("k1", 1), ("k1", 2),
+                                    ("k1", 3)],
+                         ids=["sparse", "k1-1", "k1-2", "k1-3"])
+def test_permutation_cores_equal_plain(lib, core, n):
+    """The hash kernels' sparse core and K1's kernel body (n_perms 1, 2
+    and 3) against the plain permute_n."""
+    st = _states()
+    got = k1(lib, st, n) if core == "k1" else _call(
+        lambda i, o, w: lib.h_permute(i, o, w, n, 0), (3, 8, LANES), st)
+    assert torch.equal(got, poseidon.permute_n(st, n))
 
 
 def test_conversions_equal_plain(lib):

@@ -10,6 +10,7 @@ from imt_tpu_torch.ops import field, poseidon_opt, poseidon_ref
 from imt_tpu_torch.ops.poseidon_spec import (KERNEL_TABLES, default_params,
                                              default_spec, kernel_words,
                                              to_words)
+from _torch_inference import inference_mode  # noqa: F401
 
 FIELDS = ("t", "r_f", "r_p", "pre_rounds", "mds", "mds_last_pre",
           "partial_c0", "sparse", "post_rounds")

@@ -12,6 +12,7 @@ from imt_tpu.ops import poseidon_rns_pallas as pk
 from imt_tpu_torch.ops import poseidon
 
 from test_torch_poseidon import lanes
+from _torch_inference import inference_mode  # noqa: F401
 
 torch.set_num_threads(1)
 

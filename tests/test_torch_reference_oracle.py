@@ -8,6 +8,7 @@ import torch
 from imt_tpu.tree import reference_oracle as joracle
 from imt_tpu_torch import IndexedMerkleTree
 from imt_tpu_torch.tree import reference_oracle
+from _torch_inference import inference_mode  # noqa: F401
 
 torch.set_num_threads(1)
 

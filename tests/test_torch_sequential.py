@@ -22,6 +22,7 @@ from imt_tpu.tree import indexed as jindexed
 from imt_tpu_torch import IndexedMerkleTree
 from imt_tpu_torch.ops import field, hashing
 from imt_tpu_torch.tree import indexed, merkle
+from _torch_inference import inference_mode  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -16,6 +16,7 @@ import sys
 
 import pytest
 import torch
+from _torch_inference import inference_mode  # noqa: F401
 
 pytestmark = pytest.mark.soak
 

@@ -29,6 +29,7 @@ from imt_tpu_torch.ops.poseidon_spec import default_params
 from imt_tpu_torch.tree import indexed, merkle
 from imt_tpu_torch.utils import checkpoint
 from imt_tpu_torch.utils.health import TreeCorruption, check_tree
+from _torch_inference import inference_mode  # noqa: F401
 
 torch.set_num_threads(1)
 

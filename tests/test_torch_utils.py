@@ -28,6 +28,7 @@ from imt_tpu_torch.tree import indexed
 from imt_tpu_torch.utils import checkpoint, observability
 from imt_tpu_torch.utils.config import EngineConfig, PoseidonConfig
 from imt_tpu_torch.utils.observability import GLOBAL_METRICS
+from _torch_inference import inference_mode  # noqa: F401
 
 torch.set_num_threads(1)
 

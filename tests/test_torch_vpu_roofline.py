@@ -34,6 +34,7 @@ from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
 from imt_tpu_torch.ops import vpu_roofline as vr
+from _torch_inference import inference_mode  # noqa: F401
 
 torch.set_num_threads(1)
 
