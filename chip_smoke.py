@@ -72,19 +72,33 @@ raises and the exit code is not 0:
    and the candidate exchange's bytes per call equal at depth 32 and at
    depth 24 (the byte audit on the card); each rank's launches and bytes
    per call are printed;
+9. the native oracle, hash_fixed, the fuzz.  9a: the port's C++ oracle
+   (``imt_tpu_torch/native``, built with g++) reproduces H(0,0,0), and its
+   hash2 and hash3 of 65537 seeded pairs and triples equal the card's hash
+   kernels bit for bit through the limb bridge; its single-core hashes/s
+   as ``bench.py --oracle`` measures it, beside the host CPU's model.  9b:
+   two witness batches of K = 4096 at depth 16 (config 3w's) on the card
+   against the C++ tree's inserts one by one: ok on every lane, every
+   witness field on the accepted lanes, the roots.  9c: hashing.hash_fixed
+   on the card at arities 1-8, widths 65537 (edge values, p - 1 columns)
+   and 2, arity 4 also at 2^17, each call's K1 launches n // 2 + 1,
+   against the plain version bit for bit; arities 2 and 3 through K1 equal
+   hash2 and hash3.  9d: tools/fuzz_compare_10m_torch.py's comparator
+   fuzz, 16 rounds of 2^16 pairs on the card;
 5. numbers: depth-24 inserts/s (batched and sequential), non-inclusion
    witnesses/s, phase 6's sparse chained inserts/s and witness-batch
    inserts/s, the probe's rates per body (its own path), and each
    kernel's time beside its plain version's and its bound, the Poseidon
-   entry points also at a width that fills the card, and K1 per
-   permutation (n_perms 1 and 2, with both bounds' shares) against hash2
-   per permutation at widths 2, 8192, 66560 and 2^17.
+   entry points also at a width that fills the card, K1 per permutation
+   (n_perms 1 and 2, with both bounds' shares) against hash2 per
+   permutation at widths 2, 8192, 66560 and 2^17, and hash_fixed of arity
+   4 and 8 at 2^17 (ms a call beside the plain version's, K1 launches a
+   call, ms per permutation against K1 alone).
 
-Phases 6, 7 and 8 run before phase 5, which prints its numbers.  The line
-before the last is the kernels' JSON record (the paths' kernels, each with
-its launches per path, then the entry point no path runs); the last line is
-``{"ok": true, "device": {...}}``.  Without CUDA it exits non-zero and
-prints no result.
+Phases 6, 7, 8 and 9 run before phase 5, which prints its numbers.  The
+line before the last is the kernels' JSON record (each kernel with its
+launches per path); the last line is ``{"ok": true, "device": {...}}``.
+Without CUDA it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -93,6 +107,7 @@ import glob
 import importlib.util
 import json
 import os
+import platform
 import re
 import subprocess
 import sys
@@ -154,6 +169,21 @@ SOAK_ARGS = ("--rounds", "12", "--seed", "7")
 # the __global__ function behind imt_hash2_nodes, as a trace names it
 HASH2_SYMBOL = "hash2_kernel"
 
+# phase 9: the native oracle's rate as bench.py --oracle measures it
+# (bench.py:486-505, :570: 4096 pairs, 32 iterations); witness batches
+# against the C++ tree at config 3w's depth and K (W_DEPTH, W_K), two
+# batches, the second holding duplicates of the first; hash_fixed's
+# arities and widths (the ragged one and a sequential insert's), arity 4
+# also at FILL_WIDTH, arities 4 and 8 timed in phase 5; the fuzz's rounds
+# of 2^16 pairs
+ORACLE_BATCH, ORACLE_ITERS = 4096, 32
+NATIVE_BATCHES = 2
+FIXED_ARITIES = tuple(range(1, 9))
+FIXED_WIDTHS = (RAGGED, SEQ_WIDTH)
+FIXED_WIDE_ARITY = 4
+FIXED_TIMED = (4, 8)
+FUZZ_ROUNDS = 16
+
 ANCHOR_H000 = 1960587138944869480785025106734196872454309951825657414575195034687326603497
 TV_PERM_012 = [
     0x115cc0f5e7d690413df64c6b9662e9cf2a3617f2743245519e19607a4417189a,
@@ -167,20 +197,24 @@ ROOFLINE_SOURCE = "imt_tpu_torch/ops/csrc/vpu_roofline.cu"
 # hash2 and hash3 are two modes of _hash_fn (pallas_call :1256), permute_n
 # is _permute_fn (pallas_call :1216); the TPU ran the conversions as XLA
 # around the kernel.
+# hash_fixed runs hash2 and hash3 at arities 2 and 3 and K1 at the others.
 POSEIDON = {
     "hash3_leaf": ("imt_tpu/ops/poseidon_rns_pallas.py:1240",
                    ("insert_batch", "sequential", "sparse_batches",
                     "witness_batch", "resume", "watchdog_group", "drill",
-                    "sharded_nccl1", "sharded")),
+                    "sharded_nccl1", "sharded", "hash_fixed")),
     "hash2_nodes": ("imt_tpu/ops/poseidon_rns_pallas.py:1240",
                     ("insert_batch", "sequential", "sparse_batches",
                      "witness_batch", "resume", "watchdog_group", "drill",
-                     "sharded_nccl1", "sharded")),
+                     "sharded_nccl1", "sharded", "hash_fixed")),
     "nodes_to_limbs": ("imt_tpu/ops/field_rns.py:262",
                        ("insert_batch", "sequential", "witness_batch",
-                        "resume", "watchdog_group", "drill", "sharded")),
-    "limbs_to_nodes": ("imt_tpu/ops/field_rns.py:249", ("sequential",)),
-    "permute_n": ("imt_tpu/ops/poseidon_rns_pallas.py:1199", ()),
+                        "resume", "watchdog_group", "drill", "sharded",
+                        "hash_fixed")),
+    "limbs_to_nodes": ("imt_tpu/ops/field_rns.py:249",
+                       ("sequential", "hash_fixed")),
+    "permute_n": ("imt_tpu/ops/poseidon_rns_pallas.py:1199",
+                  ("hash_fixed",)),
 }
 ROOFLINE_REPLACES = "tools/vpu_roofline.py:83"
 
@@ -1219,10 +1253,10 @@ def trace_kernels(path: str, symbol: str) -> list:
             if e.get("cat") == "kernel" and symbol in e.get("name", "")]
 
 
-def soak_tool():
+def tool(name: str):
+    """tools/<name>.py, loaded by path."""
     spec = importlib.util.spec_from_file_location(
-        "soak_indexed_torch", os.path.join(HERE, "tools",
-                                           "soak_indexed_torch.py"))
+        name, os.path.join(HERE, "tools", f"{name}.py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -1413,7 +1447,8 @@ def phase_operations(torch, pc, field, indexed, sparse_out: dict, dev,
     drill_dir = os.path.join(work_dir, "drill")
     os.makedirs(drill_dir)
     pc.reset_launch_counts()
-    drill = soak_tool().kill_resume(drill_dir, dev.type, **DRILL)
+    drill = tool("soak_indexed_torch").kill_resume(drill_dir, dev.type,
+                                                   **DRILL)
     launches["drill"] = dict(pc.LAUNCHES)
     check_launched("drill", launches["drill"])
     out["drill"] = drill
@@ -1790,6 +1825,232 @@ def phase_sharded(torch, pc, field, sparse_out: dict, work_dir: str,
     return {"launches": launches, "wall_s": wall}
 
 
+# -- phase 9: the native oracle, hash_fixed, the fuzz ------------------------
+
+def host_cpu() -> str:
+    """The host CPU: its model (lscpu's "Model name", else /proc/cpuinfo's
+    "model name", else "model not reported"), the machine type and the
+    cores this process sees."""
+    try:
+        lines = subprocess.run(["lscpu"], capture_output=True, text=True,
+                               timeout=30).stdout.splitlines()
+    except (OSError, subprocess.SubprocessError):
+        lines = []
+    with open("/proc/cpuinfo") as f:
+        lines += f.read().splitlines()
+    names = [ln.split(":", 1)[1].strip() for ln in lines
+             if ln.lower().startswith("model name")]
+    model = names[0] if names else "model not reported"
+    return f"{model}, {platform.machine()}, {os.cpu_count()} cores"
+
+
+def on_host_cores(fn, cols, chunk: int = 4096):
+    """An oracle function over the rows of uint64 [N, 4] arrays, `chunk`
+    rows a call, on every host core (a ctypes call releases the GIL, and
+    the oracle's hashes only read its constants)."""
+    from concurrent.futures import ThreadPoolExecutor
+    n = cols[0].shape[0]
+    with ThreadPoolExecutor(os.cpu_count()) as ex:
+        parts = ex.map(lambda i: fn(*(c[i:i + chunk] for c in cols)),
+                       range(0, n, chunk))
+        return np.concatenate(list(parts))
+
+
+def oracle_rate(oracle) -> float:
+    """Single-core hashes/s of the C++ oracle, as bench.py --oracle measures
+    it (bench.py:486-505): hash2 of 4096 seeded pairs, 32 times."""
+    rng = np.random.default_rng(5)
+    a = rng.integers(0, 1 << 62, (ORACLE_BATCH, 4), dtype=np.uint64)
+    b = rng.integers(0, 1 << 62, (ORACLE_BATCH, 4), dtype=np.uint64)
+    oracle.hash2_u64(a[:8], b[:8])
+    t0 = time.perf_counter()
+    for _ in range(ORACLE_ITERS):
+        oracle.hash2_u64(a, b)
+    return ORACLE_BATCH * ORACLE_ITERS / (time.perf_counter() - t0)
+
+
+def phase_oracle(torch, pc, field, oracle, dev) -> None:
+    """9a: the port's C++ oracle, built with g++, reproduces H(0,0,0) and
+    equals the card's hash kernels bit for bit at the ragged width, phase
+    3's edge values in the first lanes, through the limb bridge; then its
+    single-core rate."""
+    t0 = time.perf_counter()
+    h = oracle.hash3([0], [0], [0])
+    build_s = time.perf_counter() - t0
+    if h != [ANCHOR_H000]:
+        raise AssertionError(f"the oracle's H(0,0,0) = {h[0]:#x}")
+    rng = np.random.default_rng(SEED + 11)
+    base = seeded_limbs(rng, RAGGED)
+    for i, v in enumerate(edge_values(field)):
+        base[:, i] = int_limbs(v)
+    cols = [np.ascontiguousarray(np.roll(base, s, axis=1))
+            for s in (0, 7, 101)]
+    t = [torch.as_tensor(c, device=dev) for c in cols]
+    kernel = {"hash2": pc.hash2(t[0], t[1]).cpu().numpy(),
+              "hash3": pc.hash3(*t).cpu().numpy()}
+    u = [oracle.limbs_to_u64(c) for c in cols]
+    t0 = time.perf_counter()
+    native = {"hash2": on_host_cores(oracle.hash2_u64, u[:2]),
+              "hash3": on_host_cores(oracle.hash3_u64, u)}
+    native_s = time.perf_counter() - t0
+    for name, got in native.items():
+        if not np.array_equal(oracle.u64_to_limbs(got), kernel[name]):
+            raise AssertionError(f"{name}: the oracle differs from the "
+                                 "card's kernels")
+    rate = oracle_rate(oracle)
+    print(f"phase 9a: the C++ oracle (g++, built and loaded in {build_s} s) "
+          "reproduces H(0,0,0) = 0x0455a7...48e9; its hash2 and hash3 of "
+          f"{RAGGED} seeded pairs and triples (edge values in the first "
+          f"lanes; {native_s} s on {os.cpu_count()} host threads) equal the "
+          "card's hash kernels bit for bit through the limb bridge")
+    print(f"phase 9a: C++ oracle {rate} hashes/s ({2 * rate} perms/s), one "
+          f"core, hash2 of {ORACLE_BATCH} pairs x {ORACLE_ITERS} "
+          f"(bench.py --oracle's protocol) [host CPU: {host_cpu()}]")
+
+
+def native_witness_arrays(field, wits: list, depth: int) -> dict:
+    """The native tree's witness dicts as arrays in ``InsertWitness``'s
+    layout: limbs [16, K], proofs [depth, 16, K], helpers [depth, K]."""
+    col = field.ints_to_limbs
+    path = lambda key: np.stack([col([w[key][d] for w in wits])
+                                 for d in range(depth)])
+    bits = lambda key: np.array([w[key] for w in wits]).reshape(
+        len(wits), depth).T
+    out = {"old_root": col([w["old_root"] for w in wits]),
+           "new_root": col([w["new_root"] for w in wits]),
+           "low_leaf_proof": path("low_leaf_proof"),
+           "low_leaf_proof_helper": bits("low_leaf_proof_helper"),
+           "new_leaf_proof": path("new_leaf_proof"),
+           "new_leaf_proof_helper": bits("new_leaf_proof_helper"),
+           "new_leaf_index": np.array([w["new_leaf_index"] for w in wits]),
+           "is_new_leaf_largest": np.array([w["is_new_leaf_largest"]
+                                            for w in wits])}
+    for leaf in ("low_leaf", "new_leaf"):
+        for j, part in enumerate(("val", "next_val", "next_idx")):
+            out[f"{leaf}_{part}"] = col([w[leaf][j] for w in wits])
+    return out
+
+
+def check_native_witness(field, w, wits: list, depth: int) -> int:
+    """A witness batch (``InsertWitness``) against the native tree's
+    witnesses of the same values inserted one by one: ``ok`` equal on
+    every lane, every other field on the accepted lanes (on a rejected
+    lane the batch reports another low leaf and proof than the native
+    tree's slot 0).  Returns the number accepted."""
+    ok = np.asarray(w.ok)
+    if not np.array_equal(ok, [x["ok"] for x in wits]):
+        raise AssertionError("ok differs from the native tree's")
+    for name, want in native_witness_arrays(field, wits, depth).items():
+        got = getattr(w, name).cpu().numpy()
+        if got.shape != want.shape or not np.array_equal(got[..., ok],
+                                                          want[..., ok]):
+            raise AssertionError(f"{name} differs from the native tree's on "
+                                 "an accepted lane")
+    return int(ok.sum())
+
+
+def phase_native_witness(field, indexed, oracle, dev) -> None:
+    """9b: witness batches of config 3w's depth and K (planted duplicates
+    and zeros, the second batch holding duplicates of the first) into a
+    dense tree on the card, the same values one by one into the C++ tree;
+    after each batch the witnesses agree (check_native_witness) and so do
+    the roots."""
+    rng = np.random.default_rng(SEED + 12)
+    batches, prev = [], None
+    for _ in range(NATIVE_BATCHES):
+        prev = plant(rng, field.random_limbs(int(rng.integers(1 << 31)), W_K,
+                                             253), prev)
+        batches.append(prev)
+    tree = indexed.IndexedMerkleTree(W_DEPTH, device=dev)
+    nat = oracle.NativeIndexedTree(W_DEPTH)
+    native_s, accepted = 0.0, []
+    for i, b in enumerate(batches):
+        w = tree.insert_batch(b, witness=True)
+        t0 = time.perf_counter()
+        wits = [nat.insert(v) for v in field.limbs_to_ints(b)]
+        native_s += time.perf_counter() - t0
+        accepted.append(check_native_witness(field, w, wits, W_DEPTH))
+        if tree.get_root_int() != nat.get_root():
+            raise AssertionError(f"batch {i}: the root differs from the "
+                                 "native tree's")
+    rate = NATIVE_BATCHES * W_K / native_s
+    print(f"phase 9b: {NATIVE_BATCHES} witness batches of K={W_K} at depth "
+          f"{W_DEPTH} on the card equal the C++ tree's inserts one by one: "
+          f"ok on every lane, every witness field on the {accepted} "
+          "accepted lanes, the roots after each batch; the C++ tree ran "
+          f"{rate} inserts/s, witness included [host CPU: {host_cpu()}]")
+
+
+def fixed_columns(torch, field, width: int, seed: int, dev) -> list:
+    """max(FIXED_ARITIES) seeded limb columns on the card, phase 3's edge
+    values in the first lanes (shifted by one per column), p - 1 in every
+    other lane of column 2 and in all of column 5 (absorbed words at
+    p - 1)."""
+    rng = np.random.default_rng(seed)
+    cols = [seeded_limbs(rng, width) for _ in range(max(FIXED_ARITIES))]
+    for j, c in enumerate(cols):
+        for i, v in enumerate(edge_values(field)):
+            c[:, (i + j) % width] = int_limbs(v)
+    cols[2][:, ::2] = int_limbs(field.P - 1)[:, None]
+    cols[5][:] = int_limbs(field.P - 1)[:, None]
+    return [torch.as_tensor(c, device=dev) for c in cols]
+
+
+def phase_hash_fixed(torch, pc, plain, hashing, field, dev) -> dict:
+    """9c: hashing.hash_fixed on the card at arities 1-8 and the widths of
+    FIXED_WIDTHS, arity 4 also at FILL_WIDTH, each call's K1 launches
+    counted (n // 2 + 1); arities 2 and 3, which route to hash2 and hash3,
+    also through poseidon_cuda.hash_fixed's K1 sponge.  Then every result
+    against the plain version, bit for bit, and the two routes of arities
+    2 and 3 against each other."""
+    cols = {w: fixed_columns(torch, field, w, SEED + 13 + w, dev)
+            for w in FIXED_WIDTHS + (FILL_WIDTH,)}
+    cases = [(n, w) for w in FIXED_WIDTHS for n in FIXED_ARITIES]
+    cases.append((FIXED_WIDE_ARITY, FILL_WIDTH))
+    torch.cuda.synchronize()
+    pc.reset_launch_counts()
+    outs, k1_outs = {}, {}
+    for n, w in cases:
+        before = dict(pc.LAUNCHES)
+        outs[n, w] = hashing.hash_fixed(cols[w][:n])
+        if n in (2, 3):
+            k1_outs[n, w] = pc.hash_fixed(cols[w][:n])
+        got = launched(pc, before)
+        want = {"permute_n": n // 2 + 1, "hash2_nodes": int(n == 2),
+                "hash3_leaf": int(n == 3)}
+        if {k: got.get(k, 0) for k in want} != want:
+            raise AssertionError(f"hash_fixed arity {n} width {w}: launches "
+                                 f"{got}, expected {want}")
+    torch.cuda.synchronize()
+    launches = dict(pc.LAUNCHES)
+    print(f"phase 9c: hash_fixed, arities {FIXED_ARITIES[0]}-"
+          f"{FIXED_ARITIES[-1]} at widths {FIXED_WIDTHS} and arity "
+          f"{FIXED_WIDE_ARITY} at {FILL_WIDTH}: launches {launches}, K1 "
+          "n // 2 + 1 per call")
+    check_launched("hash_fixed", launches)
+    err = 0
+    for (n, w), got in outs.items():
+        want = plain.hash_fixed(cols[w][:n])
+        err = max(err, max_abs_err(got, want))
+        if not torch.equal(got, want) or ((n, w) in k1_outs and not
+                                          torch.equal(k1_outs[n, w], want)):
+            raise AssertionError(f"hash_fixed arity {n} width {w}: the "
+                                 "card differs from plain")
+    print(f"phase 9c: every hash_fixed result equals the plain version's, "
+          f"max_abs_err {err} (tolerance 0, bit-exact); arities 2 and 3 "
+          "through K1 equal hash2 and hash3")
+    return {"launches": launches, "max_abs_err": err}
+
+
+def phase_fuzz(fuzz_compare) -> None:
+    """9d: tools/fuzz_compare_10m_torch.py's rounds on the card."""
+    out = fuzz_compare.fuzz(FUZZ_ROUNDS, "cuda",
+                            log=lambda s: print(f"phase 9d: {s.strip()}"))
+    print(f"phase 9d: the comparator fuzz passed: {out['pairs']} pairs "
+          f"({FUZZ_ROUNDS} rounds of {fuzz_compare.BATCH}) on the card in "
+          f"{out['seconds']} s wall")
+
+
 # -- phase 5: numbers ---------------------------------------------------------
 
 def poseidon_bound_ms(name: str, width: int, imad_per_s: float,
@@ -1950,6 +2211,28 @@ def phase_numbers(torch, pc, plain, vr, vc, indexed, field, card: str,
         print(f"phase 5: K1 width {width}: {'; '.join(shares)}; hash2_nodes "
               f"ms {h[0]} {h[1]}, {min(h) / 2} per permutation; K1 / hash2 "
               f"per permutation {min(k[2]) / min(h):.4f} [{card}]")
+    k1_alone = min(k[1])
+
+    # hash_fixed at FILL_WIDTH (plain, kernel path, kernel path, plain):
+    # its K1 launches a call, and its time per permutation against K1
+    # alone at n_perms 1 (the loop's last width), which shows what the
+    # conversions and the torch absorptions between launches cost
+    cols = L + [torch.as_tensor(seeded_limbs(rng, FILL_WIDTH), device=dev)
+                for _ in range(max(FIXED_TIMED) - len(L))]
+    for n in FIXED_TIMED:
+        call = lambda f: f.hash_fixed(cols[:n])
+        before = dict(pc.LAUNCHES)
+        call(pc)
+        perms = launched(pc, before)["permute_n"]
+        p1 = vr.time_ms(lambda: call(plain), 1, 1)
+        k1 = vr.time_ms(lambda: call(pc), 10, 2)
+        k2 = vr.time_ms(lambda: call(pc), 10, 0)
+        p2 = vr.time_ms(lambda: call(plain), 1, 0)
+        print(f"phase 5: hash_fixed arity {n} width {FILL_WIDTH}: kernel "
+              f"path ms {k1} {k2}, plain ms {p1} {p2}; {perms} K1 launches "
+              f"a call, {min(k1, k2) / perms} ms per permutation against "
+              f"{k1_alone} for K1 alone at n_perms 1 "
+              f"({min(k1, k2) / perms / k1_alone:.4f}) [{card}]")
 
     for name in vr.BODIES:
         x = vr.seeded_input(name, *PROBE_SHAPE, seed=SEED)
@@ -1970,12 +2253,11 @@ def phase_numbers(torch, pc, plain, vr, vc, indexed, field, card: str,
 
 
 def kernel_record(errs: dict, launches: dict, numbers: dict) -> dict:
-    """The kernels' JSON record: every kernel that a path runs under
-    "kernels" (launches: the sum over the paths that run it, each path's
-    run counted from 0, with the split under "paths"), the entry point no
-    path runs under "off_path_kernels".  No single PyTorch call computes a
+    """The kernels' JSON record: every kernel, each on the paths that run it
+    (launches: the sum over those paths, each path's run counted from 0,
+    with the split under "paths").  No single PyTorch call computes a
     Poseidon permutation or a chained probe body, so library_ms is null."""
-    record = {"kernels": [], "off_path_kernels": []}
+    record = {"kernels": []}
     entries = [(n, "cuda", POSEIDON_SOURCE, rep, paths)
                for n, (rep, paths) in POSEIDON.items()]
     entries += [(n, "cuda", ROOFLINE_SOURCE, ROOFLINE_REPLACES, ("probe",))
@@ -1984,7 +2266,7 @@ def kernel_record(errs: dict, launches: dict, numbers: dict) -> dict:
         split = {p: launches[p][name] for p in paths}
         ms, plain_ms = numbers["times"][name]
         bound, by = numbers["bounds"][name]
-        record["kernels" if paths else "off_path_kernels"].append(
+        record["kernels"].append(
             {"name": name, "route": route, "source": source, "replaces": rep,
              "launches": sum(split.values()), "paths": split,
              "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
@@ -2003,7 +2285,8 @@ def main() -> int:
         print("no CUDA device: chip_smoke.py needs one GPU", file=sys.stderr)
         return 1
 
-    from imt_tpu_torch.ops import _build, field
+    from imt_tpu_torch.native import oracle
+    from imt_tpu_torch.ops import _build, field, hashing
     from imt_tpu_torch.ops import poseidon as plain
     from imt_tpu_torch.ops import poseidon_cuda as pc
     from imt_tpu_torch.ops import vpu_roofline as vr
@@ -2047,6 +2330,13 @@ def main() -> int:
         shard_out = phase_sharded(torch, pc, field, sparse_out, work_dir,
                                   torch.device("cuda", 0))
     del sparse_out["stream"], sparse_out["oks"]
+    t9 = time.perf_counter()
+    phase_oracle(torch, pc, field, oracle, dev)
+    phase_native_witness(field, indexed, oracle, dev)
+    fixed_out = phase_hash_fixed(torch, pc, plain, hashing, field, dev)
+    errs["permute_n"] = max(errs["permute_n"], fixed_out["max_abs_err"])
+    phase_fuzz(tool("fuzz_compare_10m_torch"))
+    print(f"phase 9: done in {time.perf_counter() - t9:.1f} s")
     numbers = phase_numbers(torch, pc, plain, vr, vc, indexed, field, card,
                             clock_mhz, slice_out, sparse_out, witness_out)
     launches = {"insert_batch": slice_out["launches"],
@@ -2056,6 +2346,7 @@ def main() -> int:
                 **ops_out["launches"],
                 "sharded_nccl1": nccl_out["launches"],
                 "sharded": shard_out["launches"],
+                "hash_fixed": fixed_out["launches"],
                 "probe": numbers["probe_launches"]}
 
     print(card)

@@ -226,6 +226,36 @@ def add_mod(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return _reduce(torch.cat([s, torch.zeros_like(s[:1])]))
 
 
+@lru_cache(maxsize=None)
+def _p_words(device: str) -> torch.Tensor:
+    return torch.tensor(_int_to_limbs_list(P, WORDS, 32), dtype=torch.int64,
+                        device=device)
+
+
+def add_mod_nodes(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(a + b) mod p on nodes int32[8, ...] of values < p, fully reduced,
+    in two fixed carry chains over the 8 words (the sum, then the sum
+    minus p): unlike ``add_mod``'s lazy carries it never reads a value
+    back to the host, so on the card it queues without a sync."""
+    m = 0xFFFFFFFF
+    s = (a.to(torch.int64) & m) + (b.to(torch.int64) & m)
+    pw = _p_words(str(a.device))
+    sums, diffs = [], []
+    carry = borrow = torch.zeros_like(s[0])
+    for i in range(WORDS):
+        t = s[i] + carry
+        carry = t >> 32
+        sums.append(t & m)
+        d = (t & m) - pw[i] - borrow
+        borrow = (d < 0).to(torch.int64)
+        diffs.append(d & m)
+    # a + b < 2p < 2^256 leaves no carry out of word 7: the sum is >= p
+    # exactly when subtracting p borrows nothing out of word 7
+    w = torch.where((borrow == 0).unsqueeze(0), torch.stack(diffs),
+                    torch.stack(sums))
+    return (w - ((w >> 31) << 32)).to(torch.int32)       # uint32 bits
+
+
 def to_mont(a: torch.Tensor) -> torch.Tensor:
     """Standard form (any 256-bit value) -> Montgomery form, reduced mod p."""
     return mont_mul(a, _col(R2_MOD_P, a))

@@ -36,6 +36,26 @@ def hash3(a, b, c):
     return _impl(a).hash3(a, b, c)
 
 
+def hash_fixed(cols):
+    """Batched fixed-length hash of any arity (the halo2-base
+    hash_fix_len_array contract; ``imt_tpu.ops.hashing.hash_fixed``,
+    :163), canonical limbs int32[16, B] x n in and out.  Arity 2 and 3
+    route to ``hash2`` / ``hash3``; any other arity runs the sponge where
+    the columns live: the plain version on the CPU, n // 2 + 1 launches of
+    the permutation kernel on the card."""
+    cols = list(cols)
+    if not cols:
+        raise ValueError("hash_fixed needs at least one input")
+    dev, width = cols[0].device, cols[0].shape[-1]
+    if any(c.device != dev or c.shape[-1] != width for c in cols[1:]):
+        raise ValueError("hash_fixed: the columns differ in device or width")
+    if len(cols) == 2:
+        return hash2(*cols)
+    if len(cols) == 3:
+        return hash3(*cols)
+    return _impl(cols[0]).hash_fixed(cols)
+
+
 def enc_nodes(limbs):
     """Canonical limbs int32[16, B] -> nodes int32[8, B]."""
     return _impl(limbs).limbs_to_nodes(limbs)

@@ -71,6 +71,34 @@ def _sponge(a_m, b_m, c_m=None) -> torch.Tensor:
     return _permute(st)[:, 1]
 
 
+def hash_fixed(cols) -> torch.Tensor:
+    """Fixed-length hash of any arity n >= 1 (the halo2-base
+    ``hash_fix_len_array`` contract; ``imt_tpu.ops.poseidon_jax``
+    ``Poseidon.hash_fixed``, :178).  cols: n canonical limb tensors
+    int32[16, B]; returns canonical limbs int32[16, B].
+
+    The sponge absorbs the inputs followed by one pad word 1, in chunks of
+    RATE = 2 with a permutation after each: the first chunk seeds words 1
+    and 2 of the state [iv0, 0, 0] and each further chunk is added to them
+    mod p, so an odd n ends with the chunk [last input, 1] and an even n
+    with the pad alone, added to word 1.  That is n // 2 + 1 permutations;
+    arity 2 and 3 give ``hash2`` and ``hash3``.  The squeezed word is word
+    1."""
+    if not cols:
+        raise ValueError("hash_fixed needs at least one input")
+    xs = [field.to_mont(field.limbs_to_work(c)) for c in cols]
+    _, _, iv0, one, _, _ = _consts(str(xs[0].device))
+    seq = xs + [one.expand_as(xs[0])]
+    st = _permute(torch.stack([iv0.expand_as(xs[0]), seq[0], seq[1]], dim=1))
+    for k in range(2, len(seq), 2):
+        chunk = seq[k:k + 2]
+        w2 = field.add_mod(st[:, 2], chunk[1]) if len(chunk) == 2 \
+            else st[:, 2]
+        st = _permute(torch.stack(
+            [st[:, 0], field.add_mod(st[:, 1], chunk[0]), w2], dim=1))
+    return field.work_to_limbs(field.from_mont(st[:, 1]))
+
+
 def permute_n(st: torch.Tensor, n_perms: int = 1) -> torch.Tensor:
     """n_perms chained permutations of node states int32[3, 8, B]."""
     w = torch.stack([field.nodes_to_work(st[j]) for j in range(3)], dim=1)

@@ -2,7 +2,8 @@
 
 Counterpart of the public wrappers of ``imt_tpu/ops/poseidon_rns_pallas.py``
 (``permute_n``, ``hash2``, ``hash2_nodes``, ``hash3``, ``hash3_leaf``), plus
-the limb <-> node conversions.  Each wrapper takes CUDA tensors only, checks
+the limb <-> node conversions and ``hash_fixed`` of any arity, a sponge of
+``permute_n`` launches.  Each wrapper takes CUDA tensors only, checks
 device, dtype, shape and contiguity, allocates its output with
 ``torch.empty``, launches on the current stream without synchronising, and
 raises if the launch reports an error.  There is no fallback: a CPU tensor
@@ -16,11 +17,12 @@ from __future__ import annotations
 
 import ctypes
 import threading
+from functools import lru_cache
 
 import torch
 
 from . import _build
-from .field import LIMBS, WORDS
+from .field import LIMBS, WORDS, add_mod_nodes
 
 LAUNCHES = {"permute_n": 0, "hash2_nodes": 0, "hash3_leaf": 0,
             "limbs_to_nodes": 0, "nodes_to_limbs": 0}
@@ -148,3 +150,36 @@ def hash2(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def hash3(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """H(a, b, c) on canonical limbs int32[16, B] -> canonical limbs."""
     return nodes_to_limbs(hash3_leaf(a, b, c))
+
+
+@lru_cache(maxsize=None)
+def _sponge_words(device: torch.device):
+    """The sponge's initial capacity word 2^64 and the pad word 1, as node
+    columns int32[8, 1] on `device`."""
+    from .poseidon_spec import default_spec, to_words
+    s = default_spec()
+    col = lambda w: torch.as_tensor(to_words(w).view("int32")[:, None],
+                                    device=device)
+    return col(s.iv_mont[0]), col(s.one_mont)
+
+
+def hash_fixed(cols) -> torch.Tensor:
+    """Fixed-length hash of any arity n >= 1 on canonical limbs int32[16, B]
+    x n -> canonical limbs int32[16, B]; the sponge of ``poseidon.hash_fixed``
+    with each permutation one K1 launch (``permute_n(st, 1)``): n // 2 + 1
+    launches, between them the absorption of the next chunk, a mod-p
+    addition of node words in plain torch ops (``field.add_mod_nodes``, as
+    XLA did it for the TPU), which keeps every word below p as K1 requires.
+    No host sync."""
+    if not cols:
+        raise ValueError("hash_fixed needs at least one input")
+    b = _check("hash_fixed", cols, (LIMBS,))
+    iv, one = _sponge_words(cols[0].device)
+    seq = [limbs_to_nodes(c) for c in cols] + [one.expand(WORDS, b)]
+    st = permute_n(torch.stack([iv.expand(WORDS, b), seq[0], seq[1]]), 1)
+    for k in range(2, len(seq), 2):
+        chunk = seq[k:k + 2]
+        w2 = add_mod_nodes(st[2], chunk[1]) if len(chunk) == 2 else st[2]
+        st = permute_n(torch.stack([st[0], add_mod_nodes(st[1], chunk[0]),
+                                    w2]), 1)
+    return nodes_to_limbs(st[1])

@@ -50,19 +50,20 @@ def test_kernel_record_names_the_replaced_code():
     bodies = list(vpu_roofline.BODIES)
     names = list(smoke.POSEIDON) + bodies
     paths = ("insert_batch", "sequential", "sparse_batches", "witness_batch",
-             "resume", "watchdog_group", "drill", "sharded_nccl1", "sharded")
+             "resume", "watchdog_group", "drill", "sharded_nccl1", "sharded",
+             "hash_fixed")
     launches = {p: dict.fromkeys(names, 1) for p in paths + ("probe",)}
     numbers = {"times": dict.fromkeys(names, (1.0, 2.0)),
                "bounds": dict.fromkeys(names, (0.5, "operations")),
                "probe_launches": dict.fromkeys(bodies, 1)}
     rec = smoke.kernel_record(dict.fromkeys(names, 0), launches, numbers)
+    assert list(rec) == ["kernels"]
     assert [e["name"] for e in rec["kernels"]] == [
         "hash3_leaf", "hash2_nodes", "nodes_to_limbs",
-        "limbs_to_nodes"] + bodies
-    assert [e["name"] for e in rec["off_path_kernels"]] == ["permute_n"]
+        "limbs_to_nodes", "permute_n"] + bodies
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"}
-    for e in rec["kernels"] + rec["off_path_kernels"]:
+    for e in rec["kernels"]:
         assert keys <= set(e), e
         assert e["route"] == "cuda" and os.path.isfile(
             os.path.join(ROOT, e["source"]))
@@ -70,8 +71,9 @@ def test_kernel_record_names_the_replaced_code():
         with open(os.path.join(ROOT, path)) as f:
             assert f.readlines()[int(line) - 1].lstrip().startswith("def "), e
     launched = {e["name"]: e["launches"] for e in rec["kernels"]}
-    assert launched["hash3_leaf"] == 9 and launched["limbs_to_nodes"] == 1
-    assert launched["nodes_to_limbs"] == 7
+    assert launched["hash3_leaf"] == 10 and launched["limbs_to_nodes"] == 2
+    assert launched["nodes_to_limbs"] == 8
+    assert rec["kernels"][4]["paths"] == {"hash_fixed": 1}
     assert list(rec["kernels"][0]["paths"]) == list(paths)
     assert all(launched[b] == 1 for b in bodies)
 
@@ -372,6 +374,36 @@ def test_phase7_trace_kernels(tmp_path):
         {"ph": "M", "name": "process_name"}]}))
     got = smoke.trace_kernels(str(path), smoke.HASH2_SYMBOL)
     assert [e["dur"] for e in got] == [5]
+
+
+def test_phase9_witness_batch_against_the_native_tree():
+    """Phase 9b's check at depth 4 on the CPU: two witness batches (the
+    second with duplicates of the first and a zero) against the C++ tree's
+    inserts one by one; then a rejected lane's differing low leaf passes
+    and an accepted lane's changed field or a flipped ok fails."""
+    import numpy as np
+    from imt_tpu_torch.native import oracle
+    smoke = _smoke_module()
+    tree = indexed.IndexedMerkleTree(4, device="cpu")
+    nat = oracle.NativeIndexedTree(4)
+    fields = set(indexed.InsertWitness.__dataclass_fields__) - {"ok"}
+    for vals in ([30, 10, 20, 10, 0, field.P - 1], [5, 30, 50, 35, 5]):
+        w = tree.insert_batch(vals, witness=True)
+        wits = [nat.insert(v) for v in vals]
+        assert set(smoke.native_witness_arrays(field, wits, 4)) == fields
+        assert smoke.check_native_witness(field, w, wits, 4) == \
+            int(w.ok.sum())
+        assert tree.get_root_int() == nat.get_root()
+    rejected = int(np.flatnonzero(~w.ok)[0])
+    assert field.limbs_to_int(w.low_leaf_val[:, rejected]) != \
+        wits[rejected]["low_leaf"][0]
+    w.new_leaf_proof[2, 0, 0] ^= 1
+    with pytest.raises(AssertionError, match="new_leaf_proof"):
+        smoke.check_native_witness(field, w, wits, 4)
+    w.new_leaf_proof[2, 0, 0] ^= 1
+    w.ok[rejected] = True
+    with pytest.raises(AssertionError, match="ok differs"):
+        smoke.check_native_witness(field, w, wits, 4)
 
 
 def test_phase3_plain_in_chunks_equals_one_call():

@@ -1,7 +1,9 @@
 """imt_tpu_torch on the card: the CUDA kernels against their plain torch
 versions, and the dense insert, the sequential witness path, the witness
 batches, the sparse tree with its chained batches, the predicates and the
-Merkle tree on CUDA against the same calls on the CPU.
+Merkle tree on CUDA against the same calls on the CPU; hash_fixed through
+K1 against its plain version, and the C++ oracle against the hash
+kernels.
 
 Marked `cuda`; each test skips where torch sees no CUDA device.  This file
 imports nothing of JAX, so on the GPU host (which has none) it runs without
@@ -248,3 +250,38 @@ def test_sparse_tree_on_cuda_equals_cpu(cuda):
                     cpu.levels + [cpu.vals, cpu.next_vals, cpu.next_idxs]):
         assert torch.equal(g.cpu(), c)
     assert gpu.get_root_int() == cpu.get_root_int()
+
+
+@pytest.mark.parametrize("width", [1, 2, 1000])
+def test_hash_fixed_on_the_card_equals_plain(cuda, width):
+    """hashing.hash_fixed at arities 1-8 on the card against the plain
+    sponge, with p - 1 in every absorbed word of column 2: arity // 2 + 1
+    K1 launches a call at every arity through poseidon_cuda.hash_fixed,
+    which at arities 2 and 3 equals hash2 and hash3."""
+    from imt_tpu_torch.ops import hashing
+    cols = [_limbs(10 + j, width, cuda) for j in range(8)]
+    cols[2] = torch.as_tensor(np.repeat(
+        field.int_to_limbs(FIELD_MODULUS - 1)[:, None], width, axis=1),
+        device=cuda)
+    for n in range(1, 9):
+        poseidon_cuda.reset_launch_counts()
+        got = poseidon_cuda.hash_fixed(cols[:n])
+        torch.cuda.synchronize()
+        assert poseidon_cuda.LAUNCHES["permute_n"] == n // 2 + 1
+        assert poseidon_cuda.LAUNCHES["hash2_nodes"] == 0
+        assert poseidon_cuda.LAUNCHES["hash3_leaf"] == 0
+        want = poseidon.hash_fixed([c.cpu() for c in cols[:n]])
+        assert torch.equal(got.cpu(), want), n
+        assert torch.equal(hashing.hash_fixed(cols[:n]).cpu(), want), n
+
+
+def test_native_oracle_equals_the_hash_kernels(cuda):
+    """The C++ oracle's hash2 and hash3 through the limb bridge against the
+    card's hash kernels, 2^256 - 1 and p - 1 among the inputs."""
+    from imt_tpu_torch.native import oracle
+    a, b, c = (_limbs(s, 1000, cuda) for s in (4, 5, 6))
+    u = [oracle.limbs_to_u64(x.cpu().numpy()) for x in (a, b, c)]
+    assert np.array_equal(oracle.u64_to_limbs(oracle.hash2_u64(*u[:2])),
+                          poseidon_cuda.hash2(a, b).cpu().numpy())
+    assert np.array_equal(oracle.u64_to_limbs(oracle.hash3_u64(*u)),
+                          poseidon_cuda.hash3(a, b, c).cpu().numpy())

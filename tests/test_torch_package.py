@@ -29,9 +29,11 @@ MODULES = [
     "imt_tpu_torch.utils.health", "imt_tpu_torch.utils.config",
     "imt_tpu_torch.parallel", "imt_tpu_torch.parallel.collectives",
     "imt_tpu_torch.parallel.local_plan", "imt_tpu_torch.parallel.sharded",
-    "imt_tpu_torch.parallel.collective_audit",
+    "imt_tpu_torch.parallel.collective_audit", "imt_tpu_torch.native",
+    "imt_tpu_torch.native.oracle",
 ]
-TOOLS = ["tools/soak_indexed_torch.py", "tools/k1_launch_torch.py"]
+TOOLS = ["tools/soak_indexed_torch.py", "tools/k1_launch_torch.py",
+         "tools/fuzz_compare_10m_torch.py"]
 
 
 def test_import_leaves_jax_and_imt_tpu_out():
@@ -95,7 +97,7 @@ def _cpu_args():
         "permute_n": (st,), "hash2_nodes": (n, n),
         "hash3_leaf": (limbs, limbs, limbs), "limbs_to_nodes": (limbs,),
         "nodes_to_limbs": (n,), "hash2": (limbs, limbs),
-        "hash3": (limbs, limbs, limbs),
+        "hash3": (limbs, limbs, limbs), "hash_fixed": ([limbs] * 4,),
     }
 
 
