@@ -4,25 +4,39 @@ Counterpart of ``tools/vpu_roofline.py`` (the TPU vector unit's ceiling):
 ``k`` chained applications of one small body per element of a ``[rows, B]``
 array, timed at two values of ``k`` so that the slope cancels the fixed
 costs.  Six f32 bodies are the tool's (``:50-81``), in its order of
-operations; two int32 bodies carry the tool's purpose to this card, whose
-Poseidon kernel is built from 32-bit integer multiply-adds:
+operations; three int32 bodies carry the tool's purpose to this card, whose
+Poseidon kernels are built from 32-bit integer multiply-adds:
 
 * ``imad16``: 16 x ``x = x*c + d`` mod 2^32;
-* ``cios16``: 16 x the inner step of ``mont_mul`` (``poseidon_bn254.cu``):
-  ``cur = x*c + t + carry`` in 64 bits, then ``x, t, carry = t, lo(cur),
-  hi(cur)``; the state starts as ``(x, d, 0)`` and the output is ``t``.
+* ``cios16``: two rows of the shape the Poseidon kernels run (``redc_row``
+  and ``mac_row_acc`` in ``poseidon_bn254.cu``).  State: 8 words ``a[j]``
+  of 64 bits per element, starting as ``x + j*d``; the row's words
+  ``w[j] = c + j*d``.  A row takes ``m = lo(a[0])*c`` mod 2^32, the eight
+  independent multiply-adds ``p[j] = m*w[j] + a[j]`` mod 2^64, the sum
+  ``s`` of their low words shifted down one word (``l[0]`` wrapping to the
+  top) and their high words, as 256-bit numbers mod 2^256 (one carry
+  chain), and sets ``a[j] = s[j] + 2^32 h[j+1 mod 8]``: each addend is the
+  register pair of the product before, so the card widens no 32-bit
+  addend.  The output is ``lo(a[0])``;
+* ``wide16``: ``a = x + 2^32 d``, 16 x ``a = lo(a)*c + a`` mod 2^64, then
+  ``x = lo(a) ^ hi(a)``: wide multiply-adds alone, timed against imad16's
+  32-bit ones for the IMAD slots a wide one takes.
 
 ``BODIES`` gives each body's op count by the tool's census rule (every
 arithmetic op of the body counts one, so a multiply-add counts two, as the
-tool counts ``muladd``), and the instructions of the kind its published peak
-counts: FP32-pipe FMUL/FADD for the f32 bodies (``floor`` runs elsewhere
-and is left out; ``ilp16`` has 15, though the tool's census says 16), and
-IMAD for the integer bodies (the wide IMAD of ``cios16`` counts once).
+tool counts ``muladd``; a cios16 row is 1 + 16 + 8), and the instructions
+of the kind its published peak counts: FP32-pipe FMUL/FADD for the f32
+bodies (``floor`` runs elsewhere and is left out; ``ilp16`` has 15, though
+the tool's census says 16), and IMAD for the integer bodies: imad16's 16,
+and cios16's and wide16's 16 wide multiply-adds, each counted as one IMAD
+(cios16's ``CIOS_NARROW`` 32-bit multipliers are left out, so its rate is
+wide multiply-adds per second with their share of 32-bit ones inside).
 
 ``run`` dispatches on the tensor's device: the plain version here for a CPU
 tensor, the CUDA kernel (``vpu_roofline_cuda.py``) for a CUDA tensor.
 ``measure`` / ``probe`` time the kernel on the card and refuse to run
-anywhere else; ``time_ms`` and ``nvidia_smi`` are the timing and the card
+anywhere else; ``time_ms`` (one call, host included), ``graph_time_ms``
+(device time per call) and ``nvidia_smi`` are the timings and the card
 query that the probe and ``chip_smoke.py`` share.
 """
 
@@ -39,6 +53,8 @@ C_F32, D_F32 = 1.000001, 1e-6
 # the integer bodies' runtime scalars: odd multiplier, odd addend
 C_U32, D_U32 = 0x9E3779B1, 0x7F4A7C15
 U32 = 0xFFFFFFFF
+CIOS_WORDS = 8                 # cios16's state words per element
+CIOS_NARROW = 2                # cios16's 32-bit multiplies an application
 # published peaks of one H100 SXM: 67 TFLOP/s f32 outside the tensor cores
 # counts an FFMA as 2, so 33.5e12 FMUL/FADD per second; 64 IMAD per clock
 # per SM (CUDA C++ Programming Guide, throughput table, cc 9.0)
@@ -64,7 +80,8 @@ BODIES = {
     "mod4": Body(torch.float32, 16, 12, "f32"),
     "ilp16": Body(torch.float32, 16, 15, "f32"),
     "imad16": Body(torch.int32, 32, 16, "imad"),
-    "cios16": Body(torch.int32, 48, 16, "imad"),
+    "cios16": Body(torch.int32, 50, 16, "imad"),
+    "wide16": Body(torch.int32, 32, 16, "imad"),
 }
 BODY_ID = {name: i for i, name in enumerate(BODIES)}
 
@@ -125,15 +142,34 @@ def _imad16_state(x, c: int, d: int, k: int):
 
 
 def _cios16_state(x, c: int, d: int, k: int):
-    t = torch.full_like(x, d)
-    carry = torch.zeros_like(x)
-    for _ in range(16 * k):
-        lo, hi = _mul_add_wide(x, c, t + carry)
-        x, t, carry = t, lo, hi
-    return t
+    w = [(c + j * d) & U32 for j in range(CIOS_WORDS)]
+    t = [(x + j * d) & U32 for j in range(CIOS_WORDS)]   # low words of a
+    u = [torch.zeros_like(x)] * CIOS_WORDS               # high words of a
+    for _ in range(2 * k):
+        m = _mul_add_wide(t[0], c, 0)[0]
+        lo, hi = zip(*(_mul_add_wide(m, w[j], t[j])
+                       for j in range(CIOS_WORDS)))
+        hi = [(h + v) & U32 for h, v in zip(hi, u)]
+        carry = 0
+        for j in range(CIOS_WORDS):
+            s = lo[(j + 1) % CIOS_WORDS] + hi[j] + carry
+            t[j], carry = s & U32, s >> 32
+        u = hi[1:] + hi[:1]
+    return t[0]
 
 
-_U32 = {"imad16": _imad16_state, "cios16": _cios16_state}
+def _wide16_state(x, c: int, d: int, k: int):
+    for _ in range(k):
+        lo, hi = x, torch.full_like(x, d)
+        for _ in range(16):
+            lo, h = _mul_add_wide(lo, c, lo)
+            hi = (h + hi) & U32
+        x = lo ^ hi
+    return x
+
+
+_U32 = {"imad16": _imad16_state, "cios16": _cios16_state,
+        "wide16": _wide16_state}
 
 
 def plain(name: str, x: torch.Tensor, k: int) -> torch.Tensor:
@@ -183,6 +219,37 @@ def seeded_input(name: str, rows: int, batch: int, seed: int = 0,
     return torch.as_tensor(x, device=device)
 
 
+# values where a body's arithmetic has its edges, each also negated: zeros,
+# infinities, NaN, denormals, the floor's 2^22 and 2^23 boundaries, and each
+# of those over D_F32 (so that x * d lands on them); for the integer bodies
+# the words 0, 1, 2^31 - 1, 2^31 and 2^32 - 1
+_EDGE_F32 = [0.0, float("inf"), float("nan"), 1e-45, 1e-40, 0.5,
+             2.0 ** 22 - 1, 2.0 ** 22 + 1, 2.0 ** 23 - 1, 2.0 ** 23,
+             2.0 ** 23 + 1, 2.0 ** 24]
+_EDGE_U32 = [0, 1, 0x7FFFFFFF, 0x80000000, U32]
+
+
+def edge_values(name: str) -> torch.Tensor:
+    """A rank-1 CPU tensor of the body's dtype holding its edge values."""
+    if BODIES[name].dtype == torch.float32:
+        v = np.array(_EDGE_F32, np.float32)
+        v = np.concatenate([v, v / np.float32(D_F32)])
+        return torch.as_tensor(np.concatenate([v, -v]))
+    v = np.array(_EDGE_U32, np.uint64).astype(np.uint32).view(np.int32)
+    return torch.as_tensor(v)
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal shape and dtype, and the same bits in every element, any NaN
+    matching any NaN."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if not a.dtype.is_floating_point:
+        return bool(torch.equal(a, b))
+    same = a.view(torch.int32) == b.view(torch.int32)
+    return bool((same | (torch.isnan(a) & torch.isnan(b))).all())
+
+
 def time_ms(fn, reps: int = 3, warmup: int = 1) -> float:
     """Best of `reps` single calls, CUDA events, after `warmup` calls."""
     for _ in range(warmup):
@@ -197,6 +264,33 @@ def time_ms(fn, reps: int = 3, warmup: int = 1) -> float:
         end.synchronize()
         best = min(best, start.elapsed_time(end))
     return best
+
+
+def graph_time_ms(fn, x: torch.Tensor, launches: int = 20,
+                  reps: int = 5) -> float:
+    """fn(x)'s device time per call, its bytes from and to HBM: `launches`
+    calls captured in one CUDA graph, each on one of enough copies of x that
+    the bytes read and written between two reads of one copy exceed twice
+    the L2 cache, each call writing a new output; the best of `reps`
+    replays (CUDA events) over `launches`.  A replay runs the calls back to
+    back, so a kernel shorter than its host call (the wrapper's Python) is
+    timed without the host in between."""
+    l2 = torch.cuda.get_device_properties(x.device).L2_cache_size
+    nbytes = x.numel() * x.element_size()
+    copies = min(launches, max(2, -(-(2 * l2 + nbytes) // (2 * nbytes))))
+    xs = [x.clone() for _ in range(copies)]
+    fn(xs[0])
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(xs[0])
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [fn(xs[i % copies]) for i in range(launches)]
+    ms = time_ms(graph.replay, reps, 1) / launches
+    del outs, graph
+    return ms
 
 
 def nvidia_smi(query: str) -> str:

@@ -29,8 +29,9 @@ def reset_launch_counts() -> None:
 
 def roofline(name: str, x: torch.Tensor, k: int) -> torch.Tensor:
     """body^k(x) elementwise on a contiguous CUDA tensor of the body's dtype
-    (float32 or int32) and rank 1 or 2; the body's scalars c, d are passed
-    as kernel arguments, so nothing constant-folds."""
+    (float32 or int32) and rank 1 or 2, of any alignment and size; the
+    body's scalars c, d are passed as kernel arguments, so nothing
+    constant-folds."""
     if name not in BODIES:
         raise ValueError(f"unknown body {name!r}; one of {list(BODIES)}")
     body = BODIES[name]

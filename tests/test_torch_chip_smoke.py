@@ -200,6 +200,138 @@ def test_sparse_census_counts_both_permutations():
             "permute_kernel", "hash2_kernel"))
 
 
+# instructions of one application of each probe body, as the built loop
+# has them (mod4: 3 floors on the conversion unit, 1 on the FP32 pipe)
+PROBE_APP = {
+    "mul": {"FMUL": 1}, "muladd": {"FMUL": 1, "FADD": 1},
+    "mul16": {"FMUL": 16}, "fma16": {"FMUL": 16, "FADD": 16},
+    "mod4": {"FMUL": 8, "FADD": 5, "FRND.FLOOR": 3, "FADD.RM": 1,
+             "LOP3.LUT": 2, "FSETP.GEU.AND": 1, "FSEL": 1},
+    "ilp16": {"FMUL": 9, "FADD": 6}, "imad16": {"IMAD": 16},
+    "cios16": {"IMAD.WIDE.U32": 16, "IMAD": 2, "IADD3": 8, "IADD3.X": 8},
+    "wide16": {"IMAD.WIDE.U32": 16, "IADD3": 16, "LOP3.LUT": 1}}
+PROBE_UNROLL = {"mul": 16, "muladd": 16, "cios16": 4}
+
+
+def _fake_probe_sass(apps: dict) -> str:
+    """The probe library's listing shaped like the built one: per body a
+    roofline_kernel<id, type> with a grid-stride loop of 4-element groups
+    around the unrolled k loop and its remainder loop, then the scalar
+    loop around the same two k loops over one element."""
+    lines, addr = [], [0]
+
+    def emit(op, args="RZ"):
+        lines.append(f"        /*{addr[0]:04x}*/                   {op} "
+                     f"{args} ;  /* 0x0 */")
+        addr[0] += 16
+
+    def loop(body, times):
+        top = addr[0]
+        for op, n in body.items():
+            for _ in range(n * times):
+                emit(op)
+        emit("VIADD")
+        emit("ISETP.NE.AND")
+        emit("@P0 BRA", f"{top:#x}")
+
+    for i, (name, app) in enumerate(apps.items()):
+        t = "f" if i < 6 else "j"
+        lines.append(f"\t\tFunction : _ZN12_GLOBAL__N_115roofline_kernelILi"
+                     f"{i}E{t}EEvPKT0_PS1_xxiS1_S1_")
+        addr[0] = 0
+        for v in (4, 1):
+            outer = addr[0]
+            emit("LDG.E.128" if v == 4 else "LDG.E")
+            loop(app, v * PROBE_UNROLL.get(name, 2))
+            loop(app, v)
+            emit("STG.E.128" if v == 4 else "STG.E")
+            emit("@P1 BRA", f"{outer:#x}")
+        emit("EXIT", "")
+    return "\n".join(lines) + "\n"
+
+
+def test_probe_census_counts_one_application():
+    """The probe's census takes each body's unrolled 4-element k loop,
+    divides by its applications, and holds the body's own instructions;
+    it refuses a loop that lacks them, or that loads or stores local
+    memory."""
+    smoke = _smoke_module()
+    census = smoke.probe_census(_fake_probe_sass(PROBE_APP),
+                                vpu_roofline.BODIES)
+    assert list(census) == list(vpu_roofline.BODIES)
+    for name, (apps, cls, by_op) in census.items():
+        trip = 4 * PROBE_UNROLL.get(name, 2)
+        assert apps == trip, name
+        assert by_op["BRA"] == by_op["VIADD"] == 1 / trip
+        for op, n in PROBE_APP[name].items():
+            assert by_op[op] == n, (name, op)
+    assert census["mul"][1]["FP32"] == 1 and census["mul"][1]["branch"] == \
+        1 / 64 and census["mul"][1]["other"] == 2 / 64
+    mod4 = census["mod4"][1]
+    assert (mod4["FP32"], mod4["FRND"], mod4["other"]) == (14, 3, 4 + 2 / 8)
+    cios = census["cios16"][1]
+    assert (cios["IMAD.WIDE"], cios["IMAD"], cios["IADD3"]) == (16, 2, 16)
+    for name, bad in (("cios16", {"IMAD": 1}),
+                      ("wide16", {"IMAD.WIDE.U32": 15}),
+                      ("mod4", {"FRND.FLOOR": 2}),
+                      ("fma16", {"FADD": 15}),
+                      ("imad16", {"IMAD": 15}),
+                      ("cios16", {"STL.64": 1}),
+                      ("mul", {"LDL": 1})):
+        with pytest.raises(AssertionError, match="probe " + name):
+            smoke.probe_census(_fake_probe_sass(
+                dict(PROBE_APP, **{name: dict(PROBE_APP[name], **bad)})),
+                vpu_roofline.BODIES)
+
+
+def test_second_bounds_from_the_census():
+    """The second bounds: mod4 at its floors' conversion unit at the best
+    split of its floors (the FP32 pipe's floor at the instructions the
+    census gives it), cios16 at the IMAD pipe its function needs (16 wide
+    multiply-adds at the measured slots, 2 IMAD), wide16 at its 16 wide
+    multiply-adds, the other bodies at the published peak, and K1-K3 at
+    their least work with each wide multiply-add at the measured slots; the
+    slots from wide16's time an application against imad16's."""
+    smoke = _smoke_module()
+    census = smoke.probe_census(_fake_probe_sass(PROBE_APP),
+                                vpu_roofline.BODIES)
+    imad_per_s = 132 * 64 * 1980e6
+    need, split, per = smoke.mod4_best_split(census["mod4"][2])
+    assert per == pytest.approx(6)       # FADD.RM, FADD, 2 LOP3, FSETP, FSEL
+    assert split == pytest.approx(16 / 52)
+    assert need == pytest.approx(12 + 4 * (1 - split + 6 * split))
+    assert need == pytest.approx(32 * (1 - split))
+    app_s, by = smoke.unit_per_app_s(vpu_roofline, "mod4", census,
+                                     imad_per_s, 2)
+    assert by.startswith("FRND") and app_s == pytest.approx(
+        need / vpu_roofline.F32_PEAK_PER_S)
+    for slots in (1, 2):
+        app_s, by = smoke.unit_per_app_s(vpu_roofline, "cios16", census,
+                                         imad_per_s, slots)
+        assert by.startswith("IMAD pipe") and app_s == pytest.approx(
+            (slots * 16 + 2) / imad_per_s)
+        app_s, by = smoke.unit_per_app_s(vpu_roofline, "wide16", census,
+                                         imad_per_s, slots)
+        assert app_s == pytest.approx(slots * 16 / imad_per_s)
+        assert by.startswith("IMAD pipe" if slots > 1 else "published")
+    for name in ("mul", "mul16", "imad16"):
+        assert smoke.unit_per_app_s(vpu_roofline, name, census, imad_per_s,
+                                    2)[1] == "published peak"
+    for ratio, slots in ((2.0, 2), (1.1, 1), (2.41, 2), (2.6, 3), (0.5, 1)):
+        est, got = smoke.wide_slots(census, {"imad16": 1.0, "wide16": ratio,
+                                             "cios16": 9.0})
+        assert est == pytest.approx(ratio) and got == slots
+    one = smoke.poseidon_bound_ms("permute_n", 1 << 17, imad_per_s)[0]
+    wide, narrow = smoke.LANE_WORK["permute_n"]
+    assert smoke.unit_bound_ms("permute_n", 1 << 17, imad_per_s, 2) == \
+        pytest.approx(one * (2 * wide + narrow) / (wide + narrow))
+    assert smoke.unit_bound_ms("permute_n", 1 << 17, imad_per_s, 1) == \
+        pytest.approx(one)
+    assert smoke.unit_bound_ms("nodes_to_limbs", 8192, imad_per_s, 2) == \
+        pytest.approx(smoke.poseidon_bound_ms("nodes_to_limbs", 8192,
+                                              imad_per_s)[0])
+
+
 def test_ptxas_report_per_kernel():
     mangled = ("_ZN50_GLOBAL__N__d154033d_17_poseidon_bn254_cu_d88bd4e1"
                "{}EPKjS1_Pjx")
@@ -215,6 +347,13 @@ def test_ptxas_report_per_kernel():
         "ptxas info    : Used 110 registers, used 0 barriers"])
     assert _smoke_module().ptxas_report(log) == {
         "hash2_kernel": (254, 48, 56), "permute_kernel": (110, 0, 0)}
+    probe = "\n".join([
+        "ptxas info    : Function properties for _ZN12_GLOBAL__N_115"
+        "roofline_kernelILi7EjEEvPKT0_PS1_xxiS1_S1_",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 90 registers, used 0 barriers"])
+    assert _smoke_module().ptxas_report(probe) == {
+        "roofline_kernel<7>": (90, 0, 0)}
 
 
 def test_bound_counts_the_least_work_schedule():

@@ -122,6 +122,38 @@ def test_roofline_kernel_equals_plain(cuda, name):
     assert vpu_roofline_cuda.LAUNCHES[name] == 4
 
 
+@pytest.mark.parametrize("name", ["mul", "mod4"])
+def test_roofline_edge_values_bit_for_bit(cuda, name):
+    """The f32 bodies on signed zeros, infinities, NaN, denormals, -0.5,
+    +-(2^22 +- 1), +-2^23, +-(2^23 + 1) and those over d (so x * d meets
+    the floor's edges), compared as int32 views, any NaN equal to any
+    NaN."""
+    x = vpu_roofline.edge_values(name).to(cuda)
+    for k in (1, 2, 7, 64):
+        got = vpu_roofline_cuda.roofline(name, x, k)
+        want = vpu_roofline.plain(name, x, k)
+        torch.cuda.synchronize()
+        assert vpu_roofline.same_bits(got, want), k
+
+
+@pytest.mark.parametrize("name", list(vpu_roofline.BODIES))
+def test_roofline_odd_sizes_offsets_and_k(cuda, name):
+    """The remainder of the unrolled k loop (k = 0, 1, 7, 64), a ragged
+    tail (an odd numel) and a start 4 bytes past a 16-byte boundary (the
+    scalar paths), one launch per call."""
+    base = vpu_roofline.seeded_input(name, 5, 203, seed=4, device=cuda)
+    views = [base, base.view(-1)[:1001], base.view(-1)[1:],
+             base.view(-1)[3:1004]]
+    vpu_roofline_cuda.reset_launch_counts()
+    for x in views:
+        for k in (0, 1, 7, 64):
+            got = vpu_roofline_cuda.roofline(name, x, k)
+            torch.cuda.synchronize()
+            assert torch.equal(got, vpu_roofline.plain(name, x, k)), \
+                (x.storage_offset(), x.numel(), k)
+    assert vpu_roofline_cuda.LAUNCHES[name] == 4 * len(views)
+
+
 def test_roofline_wrapper_refuses_bad_tensors(cuda):
     x = torch.zeros((4, 8), device=cuda)
     with pytest.raises(TypeError):

@@ -8,7 +8,8 @@ tool's BlockSpecs and memory spaces) with ``interpret=True``; every line of
 the restated bodies and of the tool's body table is asserted to appear
 verbatim in the tool's source, so the copy cannot drift.  Inputs: numpy-
 seeded x in [0.5, 2), the tool's c, d = 1.000001, 1e-6, rows 8, B 256 (two
-[8, 128] tiles), k 8.  The integer bodies are held against python ints.
+[8, 128] tiles), k 8.  The integer bodies are held against python ints
+(cios16 and wide16 restated as 64- and 256-bit arithmetic).
 
 Tolerance.  Op by op (jax.disable_jit: each primitive its own computation)
 the restated bodies equal the plain version bit for bit, as the CUDA kernel
@@ -184,14 +185,31 @@ def _python_int(name: str, x: int, k: int) -> int:
         for _ in range(16 * k):
             x = (x * c + d) & m
         return x
-    t, carry = d, 0
-    for _ in range(16 * k):
-        cur = x * c + t + carry
-        x, t, carry = t, cur & m, cur >> 32
-    return t
+    if name == "wide16":
+        for _ in range(k):
+            a = x + (d << 32)
+            for _ in range(16):
+                a = ((a & m) * c + a) % (1 << 64)
+            x = (a & m) ^ (a >> 32)
+        return x
+    # cios16: 8 words a[j] = x + j d of 64 bits, row words w[j] = c + j d;
+    # a row is p[j] = (lo(a[0]) c mod 2^32) w[j] + a[j] mod 2^64, s = (low
+    # words of p rotated down one word) + (high words of p) mod 2^256, and
+    # a[j] = s[j] + 2^32 hi(p[j+1 mod 8]); two rows an application
+    a = [(x + j * d) & m for j in range(8)]
+    w = [(c + j * d) & m for j in range(8)]
+    for _ in range(2 * k):
+        mult = (a[0] & m) * c & m
+        p = [(mult * w[j] + a[j]) % (1 << 64) for j in range(8)]
+        lo = sum((p[(j + 1) % 8] & m) << (32 * j) for j in range(8))
+        hi = sum((p[j] >> 32) << (32 * j) for j in range(8))
+        s = (lo + hi) % (1 << 256)
+        a = [(s >> (32 * j)) & m | (p[(j + 1) % 8] >> 32) << 32
+             for j in range(8)]
+    return a[0] & m
 
 
-@pytest.mark.parametrize("name", ["imad16", "cios16"])
+@pytest.mark.parametrize("name", ["imad16", "cios16", "wide16"])
 def test_plain_integer_body_equals_python_ints(name):
     x = vr.seeded_input(name, 3, 11, seed=5, device="cpu")
     x[0, 0], x[0, 1], x[0, 2] = 0, -1, -(1 << 31)        # edge bit patterns

@@ -6,14 +6,16 @@
 
 The counterpart of tools/vpu_roofline.py (the TPU vector unit's ceiling) on
 an NVIDIA GPU: k chained applications of each body per element of a
-[rows, batch] array (csrc/vpu_roofline.cu), the rate from the (k2 - k1)
-slope, CUDA events, best of 3 after a warm-up.  Beside the tool's six f32
-bodies it runs imad16 and cios16, the 32-bit integer multiply-adds the
-Poseidon kernel is built from.  Each rate is printed with the published
-peak it is held against (33.5e12 FMUL/FADD per second for f32; 132 SMs x 64
-IMAD per clock x the maximum SM clock nvidia-smi reports for the integer
-bodies) and the card's name and power limit; a share above 105% raises.
-Needs a CUDA device and refuses to run without one.
+[rows, batch] array (csrc/vpu_roofline.cu: four elements a thread, the k
+loop unrolled), the rate from the (k2 - k1) slope, CUDA events, best of 3
+after a warm-up.  Beside the tool's six f32 bodies it runs imad16 (32-bit
+multiply-adds), cios16 (two rows of the wide multiply-adds and carry chain
+that the Poseidon kernels run) and wide16 (wide multiply-adds alone).  Each
+rate is printed with the published peak it is held against (33.5e12
+FMUL/FADD per second for f32; 132 SMs x 64 IMAD per clock x the maximum SM
+clock nvidia-smi reports for the integer bodies, each wide multiply-add
+counted as one IMAD) and the card's name and power limit; a share above
+105% raises.  Needs a CUDA device and refuses to run without one.
 """
 
 from __future__ import annotations
