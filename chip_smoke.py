@@ -25,8 +25,9 @@ raises and the exit code is not 0:
    with edge values and at the main path's own widths (config 5's hash3
    over 2^17 leaves, down to the sequential path's 2 and 1; K1 with
    n_perms 1 and 3), hash3 at
-   2^21 and hash2 at 2^20 lanes (phase 7's rebuild), and the H(0,0,0) and
-   poseidonperm_x5_254_3 anchors;
+   2^21 and hash2 at 2^20 lanes (phase 7's rebuild), the bench headline's
+   shapes (limbs_to_nodes over 3 x 66560 lanes, K1 at 66560 with n_perms
+   2), and the H(0,0,0) and poseidonperm_x5_254_3 anchors;
 3b. every probe body (``csrc/vpu_roofline.cu``) vs plain, bit for bit (a
    NaN matching any NaN), at [48, 65537] with k = 64 and k = 1, at
    [48, 65536] with k = 4, and at k = 0, 1, 7 and 64 on the body's edge
@@ -93,6 +94,14 @@ raises and the exit code is not 0:
    against the plain version bit for bit; arities 2 and 3 through K1 equal
    hash2 and hash3.  9d: tools/fuzz_compare_10m_torch.py's comparator
    fuzz, 16 rounds of 2^16 pairs on the card;
+10. the bench (``bench_torch.py``, its launches counted as the "bench"
+   path): ``tools/parity_check_torch.py``'s three checks on the card, the
+   headline (K1's perms/s at 66560 lanes, the full protocol: 9 rounds of
+   min-of-3 interleaved timings, each held against the card's least-work
+   bound) and configs 2, 3, 3w, 4 and 5 at full size; each JSON line
+   printed beside the card's name and power limit; it fails on parity, a
+   suspect headline, a round above the bound or a config whose
+   ``correct`` is false;
 5. numbers: depth-24 inserts/s (batched and sequential), non-inclusion
    witnesses/s, phase 6's sparse chained inserts/s and witness-batch
    inserts/s, the probe's rates per body (its own path), the IMAD slots a
@@ -110,7 +119,7 @@ raises and the exit code is not 0:
    4 and 8 at 2^17 (ms a call beside the plain version's, K1 launches a
    call, ms per permutation against K1 alone).
 
-Phases 6, 7, 8 and 9 run before phase 5, which prints its numbers.  The
+Phases 6, 7, 8, 9 and 10 run before phase 5, which prints its numbers.  The
 line before the last is the kernels' JSON record (each kernel with its
 launches per path); the last line is ``{"ok": true, "device": {...}}``.
 Without CUDA it exits non-zero and prints no result.
@@ -132,6 +141,18 @@ import time
 import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+if __name__ == "__main__" and not os.path.isdir(
+        os.path.join(HERE, "imt_tpu_torch")):
+    print("chip_smoke.py must run from a checkout of the repository",
+          file=sys.stderr)
+    sys.exit(1)
+
+from imt_tpu_torch.ops.perm_work import (PERM_WORK, PRODUCT,  # noqa: E402
+                                         R_F, R_P, REDC_NARROW, REDC_WIDE,
+                                         SQUARE, least_perm_work)
+from imt_tpu_torch.utils.checks import (rebuild_root,  # noqa: E402
+                                        set_semantics)
+
 DEPTH, K, N_BATCHES = 24, 4096, 4
 RAGGED = 65537
 TIMING_WIDTH = 8192
@@ -203,6 +224,8 @@ FIXED_WIDTHS = (RAGGED, SEQ_WIDTH)
 FIXED_WIDE_ARITY = 4
 FIXED_TIMED = (4, 8)
 FUZZ_ROUNDS = 16
+# phase 10: bench_torch.py's configs, in --artifact's order
+BENCH_CONFIGS = ("2", "3", "3w", "4", "5")
 
 ANCHOR_H000 = 1960587138944869480785025106734196872454309951825657414575195034687326603497
 TV_PERM_012 = [
@@ -222,19 +245,19 @@ POSEIDON = {
     "hash3_leaf": ("imt_tpu/ops/poseidon_rns_pallas.py:1240",
                    ("insert_batch", "sequential", "sparse_batches",
                     "witness_batch", "resume", "watchdog_group", "drill",
-                    "sharded_nccl1", "sharded", "hash_fixed")),
+                    "sharded_nccl1", "sharded", "hash_fixed", "bench")),
     "hash2_nodes": ("imt_tpu/ops/poseidon_rns_pallas.py:1240",
                     ("insert_batch", "sequential", "sparse_batches",
                      "witness_batch", "resume", "watchdog_group", "drill",
-                     "sharded_nccl1", "sharded", "hash_fixed")),
+                     "sharded_nccl1", "sharded", "hash_fixed", "bench")),
     "nodes_to_limbs": ("imt_tpu/ops/field_rns.py:262",
                        ("insert_batch", "sequential", "witness_batch",
                         "resume", "watchdog_group", "drill", "sharded",
-                        "hash_fixed")),
+                        "hash_fixed", "bench")),
     "limbs_to_nodes": ("imt_tpu/ops/field_rns.py:249",
-                       ("sequential", "hash_fixed")),
+                       ("sequential", "hash_fixed", "bench")),
     "permute_n": ("imt_tpu/ops/poseidon_rns_pallas.py:1199",
-                  ("hash_fixed",)),
+                  ("hash_fixed", "bench")),
 }
 ROOFLINE_REPLACES = "tools/vpu_roofline.py:83"
 
@@ -248,16 +271,8 @@ ADDRESSING = 16    # wide multiplies a lane may spend on its addresses
 WIDE_PER_MONT, NARROW_PER_MONT = 128, 8
 
 # What the bound counts: the least work of each function among the
-# schedules in the repo.  8 x 32-bit limbs: a 256x256-bit product is 64
-# wide multiply-adds, a square 36 (each cross product once, doubled by a
-# shift), a Montgomery reduction 64 wide and 8 32-bit ones.  An S-box x^5
-# is two squares and a product, each reduced; a dot of an MDS row sums its
-# three products unreduced and reduces once; the 57 partial rounds take
-# imt_tpu's sparse form with lazy column words (permute_opt_lazy,
-# imt_tpu/ops/poseidon_opt.py:160) at the refresh period that needs least.
-R_F, R_P = 8, 57
-PRODUCT, SQUARE, REDC_WIDE, REDC_NARROW = 64, 36, 64, 8
-
+# schedules in the repo (imt_tpu_torch/ops/perm_work.py, which
+# bench_torch.py's headline bound reads too).
 
 # K1's core (permute_lazy, chained n_perms times in permute_kernel): the
 # sparse core's schedule with the least-work arithmetic.  Each dot is
@@ -274,24 +289,6 @@ K1_WORK = (K1_MONT * WIDE_PER_MONT + K1_SQUARES * (SQUARE + REDC_WIDE)
            (K1_MONT + K1_SQUARES + K1_DOTS) * REDC_NARROW)
 
 
-def least_perm_work(g: int) -> tuple:
-    """(wide, 32-bit) multiply-adds of one permutation whose partial rounds
-    refresh their column words every g rounds."""
-    sbox_w, sbox_n = 2 * SQUARE + PRODUCT + 3 * REDC_WIDE, 3 * REDC_NARROW
-    wide = R_F * 3 * (sbox_w + 3 * PRODUCT + REDC_WIDE)
-    narrow = R_F * 3 * (sbox_n + REDC_NARROW)
-    for start in range(0, R_P, g):
-        n = min(g, R_P - start)
-        # n S-boxes; row 0 at step d sums 3 + d products (m00 s, v.x and
-        # the d combined terms) into one reduction; the two columns take
-        # n products each and one reduction each at the refresh
-        wide += n * sbox_w + sum(3 + d for d in range(n)) * PRODUCT \
-            + n * REDC_WIDE + 2 * n * PRODUCT + 2 * REDC_WIDE
-        narrow += n * sbox_n + n * REDC_NARROW + 2 * REDC_NARROW
-    return wide, narrow
-
-
-PERM_WORK = min((least_perm_work(g) for g in range(1, 12)), key=sum)
 TO_MONT = (PRODUCT + REDC_WIDE, REDC_NARROW)      # x R^2, reduced
 FROM_MONT = (REDC_WIDE, REDC_NARROW)              # x, reduced
 LANE_WORK = {
@@ -683,6 +680,29 @@ def phase_kernel_vs_plain(torch, pc, plain, field) -> dict:
     return errs
 
 
+def phase_headline_vs_plain(torch, pc, plain, bench) -> dict:
+    """The headline's own shapes (bench_torch.py): limbs_to_nodes over its
+    state of 3 x BENCH_WIDTH limbs and K1 at n_perms CHAIN over it,
+    against the plain versions, bit for bit."""
+    dev = torch.device("cuda")
+    limbs = bench.headline_limbs(BENCH_WIDTH, 1, dev)
+    nodes = pc.limbs_to_nodes(limbs)
+    want = chunked(plain.limbs_to_nodes, (limbs,), PLAIN_CHUNK)
+    st = nodes.view(8, 3, BENCH_WIDTH).transpose(0, 1).contiguous()
+    errs = {"limbs_to_nodes": max_abs_err(nodes, want),
+            "permute_n": max_abs_err(pc.permute_n(st, bench.CHAIN),
+                                     plain.permute_n(st, bench.CHAIN))}
+    torch.cuda.synchronize()
+    if any(errs.values()):
+        raise AssertionError(f"the headline's shapes: kernel differs from "
+                             f"plain: {errs}")
+    print(f"phase 3: the headline's shapes (bench_torch.py): "
+          f"limbs_to_nodes width {3 * BENCH_WIDTH}, permute_n width "
+          f"{BENCH_WIDTH} n_perms {bench.CHAIN}: kernel vs plain "
+          f"max_abs_err {max(errs.values())} (tolerance 0, bit-exact)")
+    return errs
+
+
 def chains(permute_n, st):
     """permute_n over `st` at each chain length of K1_CHAINS, stacked."""
     import torch
@@ -802,14 +822,6 @@ def host_accept(seen: set, values: list[int]) -> list[bool]:
     return ok
 
 
-def full_rebuild_root(field, indexed, tree) -> int:
-    """The root of a tree rebuilt from the leaf state alone."""
-    hashing = indexed.hashing
-    leaves = hashing.hash3_leaf(tree.vals, tree.next_vals, tree.next_idxs)
-    full = indexed._build_levels(leaves, tree.tree_depth)
-    return field.limbs_to_int(hashing.dec_nodes(full[-1])[:, 0].cpu())
-
-
 def planted_stream(field, seed: int, n: int, k: int) -> list:
     """n batches [16, k] of random values with planted duplicates, zeros
     and earlier-batch duplicates, from `seed`: phase 4's stream (SEED + 1)
@@ -852,7 +864,7 @@ def phase_slice(torch, pc, field, indexed, reference_oracle) -> dict:
     print(f"phase 4: ok masks equal set semantics ({len(seen)} accepted of "
           f"{N_BATCHES * K})")
 
-    if full_rebuild_root(field, indexed, tree) != root:
+    if rebuild_root(tree) != root:
         raise AssertionError("root differs from a full rebuild")
     print(f"phase 4: root equals a full rebuild of 2^{DEPTH} leaves "
           f"({root:#x})")
@@ -1040,7 +1052,7 @@ def phase_sequential(torch, pc, field, indexed, merkle, reference_oracle,
           f"every witness field equal the python-int oracle's; launches "
           f"{launches}")
     check_launched("sequential", launches)
-    if full_rebuild_root(field, indexed, tree) != seq_root:
+    if rebuild_root(tree) != seq_root:
         raise AssertionError("insert_seq root differs from a full rebuild")
     print(f"phase 4b: the root after insert_seq equals a full rebuild of "
           f"2^{DEPTH} leaves ({seq_root:#x})")
@@ -1048,17 +1060,6 @@ def phase_sequential(torch, pc, field, indexed, merkle, reference_oracle,
 
 
 # -- phase 6: the sparse tree and the witness batches ------------------------
-
-def set_semantics(stream: np.ndarray) -> np.ndarray:
-    """bool[N]: sequential set semantics over the values [16, N] in stream
-    order, on numpy rows: a value is accepted iff it is nonzero and its
-    first occurrence."""
-    rows = np.ascontiguousarray(stream.T.astype(np.int32))
-    keys = rows.view(np.dtype((np.void, rows.shape[1] * 4))).ravel()
-    ok = np.zeros(rows.shape[0], dtype=bool)
-    ok[np.unique(keys, return_index=True)[1]] = True
-    return ok & rows.any(axis=1)
-
 
 def lex_order(cols: np.ndarray) -> np.ndarray:
     """The columns of limbs [16, N] sorted by value (most significant limb
@@ -1379,13 +1380,19 @@ def trace_kernels(path: str, symbol: str) -> list:
             if e.get("cat") == "kernel" and symbol in e.get("name", "")]
 
 
-def tool(name: str):
-    """tools/<name>.py, loaded by path."""
-    spec = importlib.util.spec_from_file_location(
-        name, os.path.join(HERE, "tools", f"{name}.py"))
+def load_script(path: str):
+    """The repo's script at `path` (from the root), loaded by path."""
+    name = os.path.splitext(os.path.basename(path))[0]
+    spec = importlib.util.spec_from_file_location(name,
+                                                  os.path.join(HERE, path))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def tool(name: str):
+    """tools/<name>.py, loaded by path."""
+    return load_script(os.path.join("tools", f"{name}.py"))
 
 
 def phase_operations(torch, pc, field, indexed, sparse_out: dict, dev,
@@ -1982,20 +1989,7 @@ def on_host_cores(fn, cols, chunk: int = 4096):
         return np.concatenate(list(parts))
 
 
-def oracle_rate(oracle) -> float:
-    """Single-core hashes/s of the C++ oracle, as bench.py --oracle measures
-    it (bench.py:486-505): hash2 of 4096 seeded pairs, 32 times."""
-    rng = np.random.default_rng(5)
-    a = rng.integers(0, 1 << 62, (ORACLE_BATCH, 4), dtype=np.uint64)
-    b = rng.integers(0, 1 << 62, (ORACLE_BATCH, 4), dtype=np.uint64)
-    oracle.hash2_u64(a[:8], b[:8])
-    t0 = time.perf_counter()
-    for _ in range(ORACLE_ITERS):
-        oracle.hash2_u64(a, b)
-    return ORACLE_BATCH * ORACLE_ITERS / (time.perf_counter() - t0)
-
-
-def phase_oracle(torch, pc, field, oracle, dev) -> None:
+def phase_oracle(torch, pc, field, oracle, bench, dev) -> None:
     """9a: the port's C++ oracle, built with g++, reproduces H(0,0,0) and
     equals the card's hash kernels bit for bit at the ragged width, phase
     3's edge values in the first lanes, through the limb bridge; then its
@@ -2023,7 +2017,7 @@ def phase_oracle(torch, pc, field, oracle, dev) -> None:
         if not np.array_equal(oracle.u64_to_limbs(got), kernel[name]):
             raise AssertionError(f"{name}: the oracle differs from the "
                                  "card's kernels")
-    rate = oracle_rate(oracle)
+    rate = bench.bench_oracle(ORACLE_BATCH, ORACLE_ITERS)
     print(f"phase 9a: the C++ oracle (g++, built and loaded in {build_s} s) "
           "reproduces H(0,0,0) = 0x0455a7...48e9; its hash2 and hash3 of "
           f"{RAGGED} seeded pairs and triples (edge values in the first "
@@ -2031,7 +2025,8 @@ def phase_oracle(torch, pc, field, oracle, dev) -> None:
           "card's hash kernels bit for bit through the limb bridge")
     print(f"phase 9a: C++ oracle {rate} hashes/s ({2 * rate} perms/s), one "
           f"core, hash2 of {ORACLE_BATCH} pairs x {ORACLE_ITERS} "
-          f"(bench.py --oracle's protocol) [host CPU: {host_cpu()}]")
+          f"(bench_torch.bench_oracle, bench.py --oracle's protocol) "
+          f"[host CPU: {host_cpu()}]")
 
 
 def native_witness_arrays(field, wits: list, depth: int) -> dict:
@@ -2175,6 +2170,61 @@ def phase_fuzz(fuzz_compare) -> None:
     print(f"phase 9d: the comparator fuzz passed: {out['pairs']} pairs "
           f"({FUZZ_ROUNDS} rounds of {fuzz_compare.BATCH}) on the card in "
           f"{out['seconds']} s wall")
+
+
+# -- phase 10: the bench ------------------------------------------------------
+
+def check_bench(parity: dict, headline: dict, lines: list) -> None:
+    """Phase 10's verdict on bench_torch.py's results: parity true on every
+    check; a headline with at least one valid round, none above the card's
+    bound, not suspect, its lanes equal to the plain version's; one line
+    per config of BENCH_CONFIGS, each correct."""
+    if not parity["parity"] or not all(parity["checks"].values()):
+        raise AssertionError(f"parity failed: {parity}")
+    rounds, bound = headline["rounds_mps"], headline["sanity_bound_mps"]
+    if headline.get("suspect") or not rounds:
+        raise AssertionError("the headline is suspect: no valid round")
+    if bound is None or max(rounds) > bound:
+        raise AssertionError(f"a headline round is above the card's bound "
+                             f"{bound} M perms/s: {rounds}")
+    if not headline["correct"]:
+        raise AssertionError("the headline's lanes differ from the plain "
+                             "version's")
+    if [line["config"] for line in lines] != list(BENCH_CONFIGS):
+        raise AssertionError("phase 10 did not run every config")
+    for line in lines:
+        if not line["correct"]:
+            raise AssertionError(f"config {line['config']}: correct is "
+                                 "false")
+
+
+def phase_bench(torch, pc, bench, parity_tool, card: str) -> dict:
+    """10: bench_torch.py on the card, its kernels' launches counted from 0:
+    the parity check, the headline with its full protocol at BENCH_WIDTH
+    lanes, every config at full size.  Each line is printed beside the
+    card's name and power limit; check_bench decides."""
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    torch.cuda.synchronize()
+    pc.reset_launch_counts()
+    parity = parity_tool.run_parity("cuda")
+    k1, k2 = bench.HEADLINE_KS
+    rate, extras = bench.bench_perms(BENCH_WIDTH, k1=k1, k2=k2, device=dev)
+    headline = bench.result_line("Poseidon perms/s/chip", rate, "perms/s",
+                                 extras, dev)
+    lines = [bench.config_result(c, device=dev) for c in BENCH_CONFIGS]
+    torch.cuda.synchronize()
+    launches = dict(pc.LAUNCHES)
+    print(f"phase 10: parity on the card: {parity['checks']}")
+    for line in [headline] + lines:
+        print(f"phase 10: {json.dumps(line)} [{card}]")
+    check_bench(parity, headline, lines)
+    check_launched("bench", launches)
+    print(f"phase 10: bench_torch.py's parity, headline and configs "
+          f"{', '.join(BENCH_CONFIGS)} passed (peak_bytes counts what the "
+          f"earlier phases still hold); launches {launches}; done in "
+          f"{time.perf_counter() - t0:.1f} s [{card}]")
+    return {"launches": launches}
 
 
 # -- phase 5: numbers ---------------------------------------------------------
@@ -2532,11 +2582,6 @@ def kernel_record(errs: dict, launches: dict, numbers: dict) -> dict:
 
 
 def main() -> int:
-    if not os.path.isdir(os.path.join(HERE, "imt_tpu_torch")):
-        print("chip_smoke.py must run from a checkout of the repository",
-              file=sys.stderr)
-        return 1
-    sys.path.insert(0, HERE)
     import torch
     if not torch.cuda.is_available():
         print("no CUDA device: chip_smoke.py needs one GPU", file=sys.stderr)
@@ -2568,6 +2613,10 @@ def main() -> int:
     for name, err in phase_wide_kernel_vs_plain(torch, pc, plain,
                                                 field).items():
         errs[name] = max(errs[name], err)
+    bench = load_script("bench_torch.py")
+    for name, err in phase_headline_vs_plain(torch, pc, plain,
+                                             bench).items():
+        errs[name] = max(errs[name], err)
     errs.update(phase_roofline_vs_plain(torch, vr, vc))
     slice_out = phase_slice(torch, pc, field, indexed, reference_oracle)
     seq_out = phase_sequential(torch, pc, field, indexed, merkle,
@@ -2588,12 +2637,14 @@ def main() -> int:
                                   torch.device("cuda", 0))
     del sparse_out["stream"], sparse_out["oks"]
     t9 = time.perf_counter()
-    phase_oracle(torch, pc, field, oracle, dev)
+    phase_oracle(torch, pc, field, oracle, bench, dev)
     phase_native_witness(field, indexed, oracle, dev)
     fixed_out = phase_hash_fixed(torch, pc, plain, hashing, field, dev)
     errs["permute_n"] = max(errs["permute_n"], fixed_out["max_abs_err"])
     phase_fuzz(tool("fuzz_compare_10m_torch"))
     print(f"phase 9: done in {time.perf_counter() - t9:.1f} s")
+    bench_out = phase_bench(torch, pc, bench, tool("parity_check_torch"),
+                            card)
     numbers = phase_numbers(torch, pc, plain, vr, vc, indexed, field, card,
                             clock_mhz, census, slice_out, sparse_out,
                             witness_out)
@@ -2605,6 +2656,7 @@ def main() -> int:
                 "sharded_nccl1": nccl_out["launches"],
                 "sharded": shard_out["launches"],
                 "hash_fixed": fixed_out["launches"],
+                "bench": bench_out["launches"],
                 "probe": numbers["probe_launches"]}
 
     print(card)

@@ -491,10 +491,19 @@ class ShardedIndexedMerkleTree:
 
     def get_proof(self, index: int):
         """Sibling path as canonical limbs int32[depth, 16, 1] and helper
-        bits int32[depth, 1], over the full depth."""
+        bits int32[depth, 1], over the full depth.  A slot beyond the
+        active prefix takes its siblings from the zero spine and the
+        replicated prefix root, with no collective."""
         if self._shard is None:
             return self._inner.get_proof(index)
         s = self._shard
+        if not 0 <= index < self.num_slots:
+            raise IndexError(f"slot {index} is outside the tree's "
+                             f"{self.num_slots} slots")
+        if index >> s.active_depth:
+            proof, helpers = indexed._beyond_prefix_proof(
+                s.levels[-1], index, s.active_depth, self.tree_depth)
+            return _dec_path(proof), helpers
         sibs, helpers = [], []
         mine = s.off <= index < s.off + s.c
         with collectives.program("read"):

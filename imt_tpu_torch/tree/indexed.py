@@ -551,6 +551,26 @@ def _extend_proof(proof: torch.Tensor, helpers: torch.Tensor, depth: int,
                                            device=helpers.device)]))
 
 
+def _beyond_prefix_proof(prefix_root: torch.Tensor, index: int, depth: int,
+                         full_depth: int):
+    """Sibling path of a slot `index` >= 2^depth of a depth-`full_depth`
+    tree whose active prefix of depth `depth` has the root node
+    `prefix_root` [8, 1]: nodes [full_depth, 8, 1] and helpers
+    int32[full_depth, 1], from the index's own bits.  Below the prefix's
+    level every sibling is the zero-subtree root of its level; above it,
+    the sibling is node 0 of its level (the prefix root folded up the
+    spine) where the index's sibling node is node 0, and a zero-subtree
+    root elsewhere."""
+    dev = prefix_root.device
+    sibs = list(_zero_sib_nodes(0, full_depth, dev))
+    top = index.bit_length() - 1          # the level whose sibling is node 0
+    sibs[top] = _spine_fold(prefix_root, depth, top)
+    helpers = torch.tensor([[((index >> d) & 1) == 0]
+                            for d in range(full_depth)],
+                           dtype=torch.int32, device=dev)
+    return torch.stack(sibs), helpers
+
+
 # ---------------------------------------------------------------------------
 # Sequential insert step (witness path)
 # ---------------------------------------------------------------------------
@@ -700,9 +720,29 @@ def _finish_witness(w: dict, depth: int, full_depth: int) -> InsertWitness:
     return InsertWitness(**w)
 
 
-def _stack_witness(steps: list, depth: int, full_depth: int) -> InsertWitness:
+def _empty_witness(full_depth: int, device) -> InsertWitness:
+    """The InsertWitness of no inserts, in the batch layout with 0 lanes,
+    as ``imt_tpu``'s ``insert_seq([])`` returns it."""
+    z = lambda *shape, dtype=torch.int32: torch.zeros(
+        shape, dtype=dtype, device=device)
+    limbs = ("old_root", "low_leaf_val", "low_leaf_next_val",
+             "low_leaf_next_idx", "new_root", "new_leaf_val",
+             "new_leaf_next_val", "new_leaf_next_idx")
+    w = {name: z(field.LIMBS, 0) for name in limbs}
+    for side in ("low", "new"):
+        w[f"{side}_leaf_proof"] = z(full_depth, field.LIMBS, 0)
+        w[f"{side}_leaf_proof_helper"] = z(full_depth, 0)
+    return InsertWitness(ok=z(0, dtype=torch.bool), new_leaf_index=z(0),
+                         is_new_leaf_largest=z(0, dtype=torch.bool), **w)
+
+
+def _stack_witness(steps: list, depth: int, full_depth: int,
+                   device) -> InsertWitness:
     """Per-insert witness fields (one lane each) -> one InsertWitness in the
-    batch layout ([16, C] / [full_depth, 16, C], ``imt_tpu`` :583-599)."""
+    batch layout ([16, C] / [full_depth, 16, C], ``imt_tpu`` :583-599);
+    no steps give the empty one."""
+    if not steps:
+        return _empty_witness(full_depth, device)
     return _finish_witness({key: torch.cat([w[key] for w in steps], dim=-1)
                             for key in steps[0]}, depth, full_depth)
 
@@ -893,10 +933,18 @@ class IndexedMerkleTree:
     def get_proof(self, index: int):
         """Sibling path as canonical limbs int32[depth, 16, 1] and helper
         bits int32[depth, 1] (helper = 1 iff the path node is a left
-        child), over the full depth."""
-        idx = torch.full((1,), int(index), dtype=torch.int64,
-                         device=self.device)
-        ad = self.active_depth
+        child), over the full depth.  A slot beyond the active prefix
+        (a sparse tree's empty right flank) takes its siblings from the
+        zero spine (``_beyond_prefix_proof``)."""
+        index, ad = int(index), self.active_depth
+        if not 0 <= index < self.num_slots:
+            raise IndexError(f"slot {index} is outside the tree's "
+                             f"{self.num_slots} slots")
+        if index >> ad:
+            proof, helpers = _beyond_prefix_proof(
+                self.levels[-1], index, ad, self.tree_depth)
+            return _dec_path(proof), helpers
+        idx = torch.full((1,), index, dtype=torch.int64, device=self.device)
         proof, helpers = _extend_proof(*_gather_proof(self.levels, idx, ad),
                                        ad, self.tree_depth)
         return _dec_path(proof), helpers
@@ -972,7 +1020,8 @@ class IndexedMerkleTree:
         for i in range(c):
             steps.append(_insert_step(self, new_vals[:, i:i + 1]))
             self._advance(1)
-        w = _stack_witness(steps, self.active_depth, self.tree_depth)
+        w = _stack_witness(steps, self.active_depth, self.tree_depth,
+                           self.device)
         GLOBAL_METRICS.record_hashes(c * (2 + 2 * self.tree_depth))
         return self._package_witness(w, as_numpy)
 

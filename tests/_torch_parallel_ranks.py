@@ -137,6 +137,9 @@ def resumed(tree, prefix: str) -> dict:
 J_FULL, J_CAP = 6, 4
 J_BATCHES = [[30, 10, 2 ** 250, 10], [2 ** 250, 50, 35, 0]]
 J_QUERIES = [11, 30, 0, 2 ** 250 + 1]
+# proofs inside the prefix (on ranks 0 and 2) and beyond it (the zero
+# spine, slots 32 and 63 with the prefix root folded one level up)
+J_PROOFS = (0, 9, 16, 31, 32, 63)
 
 
 def chain_and_queries(tree) -> dict:
@@ -144,6 +147,9 @@ def chain_and_queries(tree) -> dict:
         [packed(b) for b in J_BATCHES])))}
     out.update(fields("j.ni", tree.non_inclusion_witness(packed(J_QUERIES)),
                       QUERY_FIELDS))
+    for i in J_PROOFS:
+        proof, helpers = tree.get_proof(i)
+        out[f"j.proof{i}"], out[f"j.helpers{i}"] = np_(proof), np_(helpers)
     out.update(state(tree, "j"))
     return out
 

@@ -51,7 +51,7 @@ def test_kernel_record_names_the_replaced_code():
     names = list(smoke.POSEIDON) + bodies
     paths = ("insert_batch", "sequential", "sparse_batches", "witness_batch",
              "resume", "watchdog_group", "drill", "sharded_nccl1", "sharded",
-             "hash_fixed")
+             "hash_fixed", "bench")
     launches = {p: dict.fromkeys(names, 1) for p in paths + ("probe",)}
     numbers = {"times": dict.fromkeys(names, (1.0, 2.0)),
                "bounds": dict.fromkeys(names, (0.5, "operations")),
@@ -71,9 +71,9 @@ def test_kernel_record_names_the_replaced_code():
         with open(os.path.join(ROOT, path)) as f:
             assert f.readlines()[int(line) - 1].lstrip().startswith("def "), e
     launched = {e["name"]: e["launches"] for e in rec["kernels"]}
-    assert launched["hash3_leaf"] == 10 and launched["limbs_to_nodes"] == 2
-    assert launched["nodes_to_limbs"] == 8
-    assert rec["kernels"][4]["paths"] == {"hash_fixed": 1}
+    assert launched["hash3_leaf"] == 11 and launched["limbs_to_nodes"] == 3
+    assert launched["nodes_to_limbs"] == 9
+    assert rec["kernels"][4]["paths"] == {"hash_fixed": 1, "bench": 1}
     assert list(rec["kernels"][0]["paths"]) == list(paths)
     assert all(launched[b] == 1 for b in bodies)
 
@@ -556,6 +556,50 @@ def test_phase3_plain_in_chunks_equals_one_call():
                        poseidon.limbs_to_nodes(x))
     assert torch.equal(smoke.chunked(lambda a, b: a + b, (x, y), 3), x + y)
     assert smoke.edge_values(field)[2:4] == [field.P - 1, field.P]
+
+
+def _bench_results():
+    """Phase 10's inputs as bench_torch.py makes them on a passing run."""
+    parity = {"parity": True, "device": "card",
+              "checks": {"sequential_replay_d3": True,
+                         "batched_sparse_d32": True,
+                         "witness_batch_predicate": True}}
+    headline = {"metric": "Poseidon perms/s/chip", "value": 55.0e6,
+                "rounds_mps": [55.0, 54.9, 55.2], "rejected_mps": [],
+                "sanity_bound_mps": 264.8, "correct": True}
+    lines = [{"config": c, "correct": True}
+             for c in _smoke_module().BENCH_CONFIGS]
+    return parity, headline, lines
+
+
+def test_phase10_checks_the_bench_lines():
+    """check_bench passes a run whose parity, headline and five configs
+    are sound, and fails one with a config whose correct is false, an
+    accepted round above the card's bound, a suspect headline, a parity
+    check that failed, a missing config or wrong headline lanes."""
+    import copy
+    smoke = _smoke_module()
+    assert smoke.BENCH_CONFIGS == ("2", "3", "3w", "4", "5")
+    smoke.check_bench(*_bench_results())
+    breaks = {
+        "correct is false": lambda p, h, l: l[3].update(correct=False),
+        "above the card's bound": lambda p, h, l: h["rounds_mps"].append(
+            300.0),
+        "suspect": lambda p, h, l: h.update(suspect=True),
+        "parity": lambda p, h, l: p["checks"].update(
+            batched_sparse_d32=False),
+        "every config": lambda p, h, l: l.pop(),
+        "plain version": lambda p, h, l: h.update(correct=False),
+    }
+    for msg, brk in breaks.items():
+        args = copy.deepcopy(_bench_results())
+        brk(*args)
+        with pytest.raises(AssertionError, match=msg):
+            smoke.check_bench(*args)
+    no_bound = copy.deepcopy(_bench_results())
+    no_bound[1]["sanity_bound_mps"] = None
+    with pytest.raises(AssertionError, match="bound"):
+        smoke.check_bench(*no_bound)
 
 
 def test_golden_path_matches_oracle_on_cpu():

@@ -24,6 +24,8 @@ from imt_tpu_torch.ops import (field, poseidon, poseidon_cuda, vpu_roofline,
                                vpu_roofline_cuda)
 from imt_tpu_torch.tree import indexed
 from _torch_inference import inference_mode  # noqa: F401
+import test_torch_port_faults as faults
+from test_torch_port_faults import one_rank_mesh  # noqa: F401
 
 pytestmark = pytest.mark.cuda
 
@@ -317,3 +319,35 @@ def test_native_oracle_equals_the_hash_kernels(cuda):
                           poseidon_cuda.hash2(a, b).cpu().numpy())
     assert np.array_equal(oracle.u64_to_limbs(oracle.hash3_u64(*u)),
                           poseidon_cuda.hash3(a, b, c).cpu().numpy())
+
+
+def test_sparse_proofs_beyond_the_prefix_on_the_card(cuda):
+    """tests/test_torch_port_faults.py's every-slot check on the card: a
+    depth-6 sparse tree holding 2^2 slots against the dense tree, each
+    proof verifying; and the CPU tree's slot 63 proof equal."""
+    sparse = SparseIndexedMerkleTree(faults.DEPTH, faults.CAP, device=cuda)
+    dense = IndexedMerkleTree(faults.DEPTH, device=cuda)
+    sparse.insert_batch(faults.VALUES)
+    dense.insert_batch(faults.VALUES)
+    assert sparse.active_depth == faults.CAP
+    faults.check_all_proofs(sparse, dense)
+    cpu = SparseIndexedMerkleTree(faults.DEPTH, faults.CAP, device="cpu")
+    cpu.insert_batch(faults.VALUES)
+    for got, want in zip(sparse.get_proof(63), cpu.get_proof(63)):
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("kind", ["dense", "sparse", "unsharded"])
+def test_empty_insert_seq_on_the_card(cuda, kind, request):
+    if kind == "unsharded":
+        from imt_tpu_torch.parallel.sharded import ShardedIndexedMerkleTree
+        mesh = request.getfixturevalue("one_rank_mesh")
+        tree = ShardedIndexedMerkleTree(4, mesh, sparse=False, device=cuda)
+        assert not tree.is_sharded
+    elif kind == "sparse":
+        tree = SparseIndexedMerkleTree(4, initial_capacity_log2=1,
+                                       device=cuda)
+    else:
+        tree = IndexedMerkleTree(4, device=cuda)
+    faults.check_empty_insert_seq(tree)
+    assert tree.insert_seq([]).old_root.device.type == "cuda"

@@ -30,10 +30,12 @@ MODULES = [
     "imt_tpu_torch.parallel", "imt_tpu_torch.parallel.collectives",
     "imt_tpu_torch.parallel.local_plan", "imt_tpu_torch.parallel.sharded",
     "imt_tpu_torch.parallel.collective_audit", "imt_tpu_torch.native",
-    "imt_tpu_torch.native.oracle",
+    "imt_tpu_torch.native.oracle", "imt_tpu_torch.ops.perm_work",
+    "imt_tpu_torch.utils.checks",
 ]
 TOOLS = ["tools/soak_indexed_torch.py", "tools/k1_launch_torch.py",
-         "tools/fuzz_compare_10m_torch.py"]
+         "tools/fuzz_compare_10m_torch.py", "bench_torch.py",
+         "tools/parity_check_torch.py"]
 
 
 def test_import_leaves_jax_and_imt_tpu_out():

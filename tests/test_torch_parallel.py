@@ -251,3 +251,32 @@ def test_chain_and_queries_match_imt_tpu(run, key):
     assert (R.J_BATCHES, R.J_QUERIES) == (chained.BATCHES, chained.QUERIES)
     for r in ranks:
         assert _equal(r[key], ref[key]), key
+
+
+def test_sharded_proofs_beyond_the_prefix(run):
+    """get_proof on the sharded depth-6 tree holding 2^4 slots, inside the
+    prefix (a collective) and beyond it (the zero spine, no collective):
+    equal to the single-device sparse tree's on every rank, and each
+    verifies against the root with its slot's leaf (an empty slot's is
+    H(0, 0, 0))."""
+    from imt_tpu_torch.tree.merkle import verify_proofs
+    ranks, ref = run
+    for r in ranks:
+        for i in R.J_PROOFS:
+            for w in ("proof", "helpers"):
+                assert _equal(r[f"j.{w}{i}"], ref[f"j.{w}{i}"]), (w, i)
+    cols = lambda name: torch.as_tensor(ref[f"j.{name}"][:, list(
+        i if i < ref["j.vals"].shape[1] else 0 for i in R.J_PROOFS)]
+        .astype(np.int32))
+    beyond = torch.tensor([i >= ref["j.vals"].shape[1] for i in R.J_PROOFS])
+    vals, nvs, nis = (torch.where(beyond, 0, cols(n))
+                      for n in ("vals", "next_vals", "next_idxs"))
+    leaves = hashing.hash3(vals, nvs, nis)
+    proofs = torch.as_tensor(np.concatenate(
+        [ref[f"j.proof{i}"] for i in R.J_PROOFS], axis=-1).astype(np.int32))
+    root = torch.as_tensor(field.ints_to_limbs([ref["j.root"]]))
+    assert verify_proofs(leaves, list(R.J_PROOFS), root, proofs,
+                         "cpu").all()
+    for i in R.J_PROOFS:
+        assert ref[f"j.helpers{i}"][:, 0].tolist() == [
+            int(((i >> d) & 1) == 0) for d in range(R.J_FULL)]
