@@ -1404,7 +1404,6 @@ def phase_operations(torch, pc, field, indexed, sparse_out: dict, dev,
     from imt_tpu_torch.utils import checkpoint, observability
     from imt_tpu_torch.utils.health import (TreeCorruption, Watchdog,
                                             check_tree)
-    from imt_tpu_torch.utils.observability import GLOBAL_METRICS
     t_phase = time.perf_counter()
     path, launches, out = sparse_out["snapshot"], {}, {}
 
@@ -1505,7 +1504,7 @@ def phase_operations(torch, pc, field, indexed, sparse_out: dict, dev,
 
     wd = Watchdog(resumed, interval=WD_INTERVAL, sample=WD_SAMPLE)
     trace_dir = os.path.join(work_dir, "trace")
-    submitted = GLOBAL_METRICS.inserts_submitted
+    submitted = observability.total("inserts.submitted")
     pc.reset_launch_counts()
     t_trace = time.perf_counter()
     with observability.trace("config5_group", trace_dir=trace_dir):
@@ -1525,7 +1524,8 @@ def phase_operations(torch, pc, field, indexed, sparse_out: dict, dev,
     if not (isinstance(ok, torch.Tensor) and ok.device.type == dev.type
             and ok.dtype == torch.bool and ok.shape == want.shape):
         raise AssertionError("as_numpy=False did not leave ok on the card")
-    if GLOBAL_METRICS.inserts_submitted - submitted != group.shape[0] * C5_K:
+    if observability.total("inserts.submitted") - submitted \
+            != group.shape[0] * C5_K:
         raise AssertionError("inserts_submitted did not count the group")
     got = ok.cpu().numpy()
     if not np.array_equal(got, want) or not np.array_equal(twin_ok, got):

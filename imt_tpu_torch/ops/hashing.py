@@ -8,12 +8,19 @@ fully reduced, ``int32[8, B]``), so there is no backend switch and no
 ``node_repr``.
 
 Canonical limbs are ``int32[16, B]``; nodes are ``int32[8, B]``.
+
+Hash work is counted here, where each launch is chosen, with the tracer's
+counters (``utils/observability.py``): ``hash2.launches`` /
+``hash2.lanes`` (K2), ``hash3.launches`` / ``hash3.lanes`` (K3) and
+``perm.launches`` / ``perm.lanes`` (K1, the sponge of other arities), one
+launch a call on either device and its width in lanes.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..utils.observability import count
 from . import poseidon, poseidon_cuda
 
 
@@ -26,13 +33,20 @@ def _impl(x: torch.Tensor):
     raise ValueError(f"no Poseidon implementation for device {x.device}")
 
 
+def _counted(kind: str, launches: int, lanes: int) -> None:
+    count(kind + ".launches", launches)
+    count(kind + ".lanes", launches * lanes)
+
+
 def hash2(a, b):
     """Batched 2-to-1 Poseidon hash, canonical limbs in and out."""
+    _counted("hash2", 1, a.shape[-1])
     return _impl(a).hash2(a, b)
 
 
 def hash3(a, b, c):
     """Batched 3-to-1 Poseidon hash (indexed leaf), canonical limbs."""
+    _counted("hash3", 1, a.shape[-1])
     return _impl(a).hash3(a, b, c)
 
 
@@ -53,6 +67,7 @@ def hash_fixed(cols):
         return hash2(*cols)
     if len(cols) == 3:
         return hash3(*cols)
+    _counted("perm", len(cols) // 2 + 1, width)
     return _impl(cols[0]).hash_fixed(cols)
 
 
@@ -68,9 +83,11 @@ def dec_nodes(nodes):
 
 def hash2_nodes(a, b):
     """Batched 2-to-1 hash, nodes in and out (every Merkle level)."""
+    _counted("hash2", 1, a.shape[-1])
     return _impl(a).hash2_nodes(a, b)
 
 
 def hash3_leaf(a, b, c):
     """Batched 3-to-1 leaf hash: canonical limbs in, nodes out."""
+    _counted("hash3", 1, a.shape[-1])
     return _impl(a).hash3_leaf(a, b, c)

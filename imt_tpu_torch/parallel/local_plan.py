@@ -263,26 +263,6 @@ def _rank_plan(new_vals, slots, qpos, blo_v, blo_s, blo_f, bhi_v, bhi_s,
                 has_fin=b_r(has_na | bhi_f_r))
 
 
-def hash_count(depth: int, k: int, d: int, b: int = 1) -> int:
-    """Fixed-length hashes `b` chained shard-local batches perform over
-    the whole mesh (``imt_tpu`` :393, metrics accounting): the 2K dirty
-    leaves (padded to a multiple of d), each rank's slab window and K
-    rewrite lanes per level below its crossover and its whole level above,
-    then the replicated top rebuild once per chain."""
-    c = (1 << depth) // d
-    per_batch = 2 * k + ((-2 * k) % d)
-    slab, full = k, False
-    for lvl in range(c.bit_length() - 1):
-        w = c >> lvl
-        if full or 2 * k >= w // 2:
-            full = True
-            per_batch += (w // 2) * d
-        else:
-            slab = slab // 2 + 1
-            per_batch += (slab + k) * d
-    return b * per_batch + d - 1
-
-
 def exchange_bytes(d: int, k: int, b: int = 1) -> int:
     """Bytes one rank's collectives return over a chain of `b` batches
     (``imt_tpu`` :17-18): per batch the candidates, 2 x D x K x (value 64

@@ -39,7 +39,7 @@ from ..tree.indexed import (IndexedMerkleTree, InsertWitness,
                             _as_limb_batch)
 from ..tree.merkle import _dec_path, verify_proofs
 from ..tree.sparse import SparseIndexedMerkleTree
-from ..utils.observability import GLOBAL_METRICS, log_event
+from ..utils.observability import count, log_event
 from . import collectives, local_plan
 from .local_plan import Shard, shardable
 
@@ -444,7 +444,6 @@ class ShardedIndexedMerkleTree:
             with collectives.program("growth"):
                 local = self._regroup(new - ad)
         self._install_local(local, new, self.count)
-        GLOBAL_METRICS.record_hashes((2 << new) - 1)
         log_event("sparse_grow", active_depth=new, slots=1 << new,
                   sharded=self.is_sharded)
 
@@ -536,7 +535,7 @@ class ShardedIndexedMerkleTree:
             return self._inner.non_inclusion_witness(values,
                                                      as_numpy=as_numpy)
         queries, k = _as_limb_batch(values, self.device)
-        GLOBAL_METRICS.record_queries(k)
+        count("queries", k)
         w = NonInclusionWitness(**local_plan.local_non_inclusion_witness(
             self._shard, queries, self._mesh, k))
         if not as_numpy:
@@ -578,16 +577,12 @@ class ShardedIndexedMerkleTree:
         if witness:
             fields = local_plan.local_insert_batch_witness(
                 s, new_vals, self._mesh, k)
-            # mesh-wide, as imt_tpu counts it: the walk and the leaf
-            # timeline run on all d ranks
-            GLOBAL_METRICS.record_hashes(self._d * 2 * k * (1 + ad))
             w = indexed._finish_witness(fields, ad, self.tree_depth)
             w.ok = IndexedMerkleTree._accepted(w.ok, as_numpy)
             if as_numpy and indexed.debug_witness_enabled():
                 indexed.check_insert_witness(w)
             return w
         ok = local_plan.local_insert_batch(s, new_vals, self._mesh, k)
-        GLOBAL_METRICS.record_hashes(local_plan.hash_count(ad, k, self._d))
         return IndexedMerkleTree._accepted(ok, as_numpy)
 
     def insert_batches(self, values, as_numpy: bool = True):
@@ -599,10 +594,8 @@ class ShardedIndexedMerkleTree:
         self._reserve(b * k)
         if self._shard is None:
             return self._inner.insert_batches(arr, as_numpy=as_numpy)
-        ad = self._shard.active_depth
         oks = local_plan.local_insert_batches(self._shard, arr, self._mesh,
                                               k, b)
-        GLOBAL_METRICS.record_hashes(local_plan.hash_count(ad, k, self._d, b))
         return IndexedMerkleTree._accepted(oks, as_numpy)
 
     # -- serialization -------------------------------------------------------

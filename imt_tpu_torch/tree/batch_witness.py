@@ -31,6 +31,7 @@ from __future__ import annotations
 import torch
 
 from ..ops import field, hashing
+from ..utils.observability import span
 from . import indexed
 
 # the largest step: no insert step reaches it
@@ -235,51 +236,59 @@ def insert_batch_witness(vals, nvs, nis, levels: list, new_vals,
     slots = s0 + torch.arange(k, device=dev)
 
     # ---- the final list: the planner of the plain batched insert ----------
-    sort = indexed._sort_batch(vals, new_vals, s0, n, k)
+    with span("sort"):
+        sort = indexed._sort_batch(vals, new_vals, s0, n, k)
     order, entry_slot, accepted, pos_new = sort
 
     # ---- temporal planning (imt_tpu :308-362) -------------------------------
-    # nearest existing participant (slot 0 or an occupied slot, in the
-    # state before the batch) below / above each sorted position
-    part_s = torch.cat([indexed._participants(vals),
-                        torch.zeros(k, dtype=torch.bool, device=dev)])[order]
-    prv_e, nxt_e = indexed._prev_true(part_s, -1), indexed._next_true(part_s)
+    with span("temporal"):
+        # nearest existing participant (slot 0 or an occupied slot, in the
+        # state before the batch) below / above each sorted position
+        part_s = torch.cat([indexed._participants(vals), torch.zeros(
+            k, dtype=torch.bool, device=dev)])[order]
+        prv_e = indexed._prev_true(part_s, -1)
+        nxt_e = indexed._next_true(part_s)
 
-    # intra-batch chains: ANSV over the new entries in value order; sigma
-    # is an accepted entry's step (its batch index), else never
-    spn, ids = torch.sort(pos_new)                     # rank -> entry
-    sigma = torch.where(accepted[spn], ids, _NEVER)
-    lo_r, lo_f = _ansv_prev(sigma, ids)
-    hi_r, hi_f = _ansv_prev(sigma.flip(0), ids.flip(0))
-    lo_pos = torch.where(lo_f, spn[lo_r], -1)
-    hi_pos = torch.where(hi_f.flip(0), spn[(k - 1 - hi_r.flip(0))], m)
-    rank = torch.empty_like(ids)
-    rank[ids] = torch.arange(k, device=dev)
-    low_pos = torch.maximum(prv_e[pos_new], lo_pos[rank]).clamp(0, m - 1)
-    succ_pos = torch.minimum(nxt_e[pos_new], hi_pos[rank])
-    has_succ = succ_pos < m
-    low_entry = order[low_pos]
-    succ_entry = order[succ_pos.clamp(0, m - 1)]
-    low_slot = entry_slot[low_entry]
-    low_val = indexed._entry_vals(vals, new_vals, low_entry, n)
-    succ_val = torch.where(
-        has_succ, indexed._entry_vals(vals, new_vals, succ_entry, n), 0)
-    succ_idx = indexed.index_to_limbs(
-        torch.where(has_succ, entry_slot[succ_entry], 0))
+        # intra-batch chains: ANSV over the new entries in value order;
+        # sigma is an accepted entry's step (its batch index), else never
+        spn, ids = torch.sort(pos_new)                     # rank -> entry
+        sigma = torch.where(accepted[spn], ids, _NEVER)
+        lo_r, lo_f = _ansv_prev(sigma, ids)
+        hi_r, hi_f = _ansv_prev(sigma.flip(0), ids.flip(0))
+        lo_pos = torch.where(lo_f, spn[lo_r], -1)
+        hi_pos = torch.where(hi_f.flip(0), spn[(k - 1 - hi_r.flip(0))], m)
+        rank = torch.empty_like(ids)
+        rank[ids] = torch.arange(k, device=dev)
+        low_pos = torch.maximum(prv_e[pos_new], lo_pos[rank]).clamp(
+            0, m - 1)
+        succ_pos = torch.minimum(nxt_e[pos_new], hi_pos[rank])
+        has_succ = succ_pos < m
+        low_entry = order[low_pos]
+        succ_entry = order[succ_pos.clamp(0, m - 1)]
+        low_slot = entry_slot[low_entry]
+        low_val = indexed._entry_vals(vals, new_vals, low_entry, n)
+        succ_val = torch.where(
+            has_succ, indexed._entry_vals(vals, new_vals, succ_entry, n), 0)
+        succ_idx = indexed.index_to_limbs(
+            torch.where(has_succ, entry_slot[succ_entry], 0))
 
     # ---- the final state, in place (read above before it is written) ------
-    _, ok = indexed._link_batch(vals, nvs, nis, new_vals, sort, s0, n, k)
+    with span("link"):
+        _, ok = indexed._link_batch(vals, nvs, nis, new_vals, sort, s0, n, k)
 
     # ---- the leaf updates: 2 per step; a rejected step rewrites its own
     # empty slot (an identity update) on both rows --------------------------
     z = lambda x: torch.where(ok, x, 0)
-    upd_val = hashing.hash3_leaf(
-        torch.cat([z(new_vals), z(low_val)], dim=1),
-        torch.cat([z(succ_val), z(new_vals)], dim=1),
-        torch.cat([z(succ_idx), z(indexed.index_to_limbs(slots))], dim=1))
-    (low_proof, new_proof, low_help, new_help, old_root,
-     new_root) = _witness_walk(levels, torch.where(ok, low_slot, slots),
-                               slots, s0, upd_val)
+    with span("leaf_hash"):
+        upd_val = hashing.hash3_leaf(
+            torch.cat([z(new_vals), z(low_val)], dim=1),
+            torch.cat([z(succ_val), z(new_vals)], dim=1),
+            torch.cat([z(succ_idx), z(indexed.index_to_limbs(slots))],
+                      dim=1))
+    with span("walk"):
+        (low_proof, new_proof, low_help, new_help, old_root,
+         new_root) = _witness_walk(levels, torch.where(ok, low_slot, slots),
+                                   slots, s0, upd_val)
     return dict(
         ok=ok, old_root=old_root, low_leaf_val=low_val,
         low_leaf_next_val=succ_val, low_leaf_next_idx=succ_idx,

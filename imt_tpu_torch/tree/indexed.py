@@ -20,16 +20,23 @@ Every mutating entry point and ``non_inclusion_witness`` take ``as_numpy``
 (``imt_tpu`` :1037-1210).  With the default True, ``ok`` comes back as
 numpy, which waits for the device once per call.  With False it stays a
 bool tensor on the tree's device and the call neither reads a value back
-nor waits for the card: inserts are counted as submitted
-(``record_submitted``), the debug-witness check is skipped, and calls queue
-behind one another on the card.  Values given as python ints or numpy are
-range-checked on the host and copied to the card from pinned memory; limbs
-given as a tensor are checked where they lie, which on the card reads one
-flag back.
+nor waits for the card: inserts are counted as submitted (the
+``inserts.submitted`` counter), the debug-witness check is skipped, and
+calls queue behind one another on the card.  Values given as python ints
+or numpy are range-checked on the host and copied to the card from pinned
+memory; limbs given as a tensor are checked where they lie, which on the
+card reads one flag back.
 
 Every hash goes through ``ops/hashing.py``: the plain torch path for CPU
 tensors, the CUDA kernel for CUDA tensors.  A tree lives on the card unless
 the caller asks for ``device="cpu"``.
+
+The tracer (``utils/observability.py``) sees each call as one API span
+(``insert_batch``, ``insert_batches``, ``get_root``) over spans of its
+layers: ``stage`` (host values to the device), the planner's ``sort``,
+``link``, ``temporal`` and ``leaf_hash``, the witness ``walk`` and
+``finish``, the path update's ``paths`` and ``rebuild``, and ``wait``
+wherever the host blocks on the device.
 
 State: canonical limbs ``int32[16, N]`` for ``vals`` / ``next_vals`` /
 ``next_idxs``, and the Merkle levels as nodes ``int32[8, N >> d]``
@@ -60,7 +67,7 @@ import numpy as np
 import torch
 
 from ..ops import field, hashing
-from ..utils.observability import GLOBAL_METRICS
+from ..utils.observability import count, span
 from .merkle import _dec_path, _enc_path, fold_nodes, verify_proofs
 
 # H(0,0,0): the empty-slot leaf hash.
@@ -179,7 +186,10 @@ def _checked_limbs(values, device) -> torch.Tensor:
             raise ValueError("limbs must lie in [0, 2^16)")
         return _stage(x, device)
     x = values.to(torch.int64)
-    if bool(((x < 0) | (x > field.MASK)).any()):
+    bad = ((x < 0) | (x > field.MASK)).any()
+    with span("wait"):
+        bad = bool(bad)
+    if bad:
         raise ValueError("limbs must lie in [0, 2^16)")
     return x.to(device=device, dtype=torch.int32).contiguous()
 
@@ -274,21 +284,6 @@ def _lex_order(keys) -> torch.Tensor:
     return order
 
 
-def _batch_hash_count(depth: int, k: int) -> int:
-    """Fixed-length hashes one insert_batch performs (metrics accounting),
-    mirroring _update_paths_batch's slab/low split."""
-    total, slab, full = 2 * k, k, False       # 2k leaf hashes
-    for d in range(depth):
-        w = (1 << depth) >> d
-        if full or k >= w // 2:
-            full = True
-            total += w // 2
-        else:
-            slab = slab // 2 + 1
-            total += k + slab
-    return total
-
-
 def _crossover(depth: int, d_width: int) -> int:
     """First level index at which _update_paths_batch switches to full-level
     rebuild for a dirty set of d_width entries."""
@@ -296,17 +291,6 @@ def _crossover(depth: int, d_width: int) -> int:
         if d_width >= ((1 << depth) >> d) // 2:
             return d
     return depth
-
-
-def _batches_hash_count(depth: int, k: int, b: int) -> int:
-    """Fixed-length hashes one insert_batches call of b batches performs:
-    b batches below the crossover, one rebuild above it."""
-    cross = _crossover(depth, k)
-    per_batch, slab = 2 * k, k
-    for _ in range(cross):
-        slab = slab // 2 + 1
-        per_batch += k + slab
-    return b * per_batch + (((1 << depth) >> cross) - 1)
 
 
 def _halves(level: torch.Tensor):
@@ -461,14 +445,17 @@ def _plan_batch(vals, nvs, nis, new_vals, count: int, n: int, k: int):
     Returns (low_idx int64[K], low_hash [8, K], slab_start, slab_hash [8, K],
     ok bool[K])."""
     slab_start = count + 1
-    low_idx, ok = _link_batch(
-        vals, nvs, nis, new_vals,
-        _sort_batch(vals, new_vals, slab_start, n, k), slab_start, n, k)
+    with span("sort"):
+        sort = _sort_batch(vals, new_vals, slab_start, n, k)
+    with span("link"):
+        low_idx, ok = _link_batch(vals, nvs, nis, new_vals, sort, slab_start,
+                                  n, k)
     # dirty leaves: the K low leaves (rejected lanes rehash an unchanged
     # leaf) and the contiguous new-slot slab, in ONE width-2K hash3
-    hashes = hashing.hash3_leaf(*[
-        torch.cat([x[:, low_idx], _dynamic_slice(x, slab_start, k)], dim=1)
-        for x in (vals, nvs, nis)])
+    with span("leaf_hash"):
+        hashes = hashing.hash3_leaf(*[
+            torch.cat([x[:, low_idx], _dynamic_slice(x, slab_start, k)],
+                      dim=1) for x in (vals, nvs, nis)])
     return (low_idx, hashes[:, :k].contiguous(), slab_start,
             hashes[:, k:].contiguous(), ok)
 
@@ -928,7 +915,11 @@ class IndexedMerkleTree:
             self.levels[-1], self.active_depth, self.tree_depth))
 
     def get_root_int(self) -> int:
-        return field.limbs_to_int(self.get_root()[:, 0].cpu())
+        with span("get_root"):
+            root = self.get_root()[:, 0]
+            with span("wait"):
+                root = root.cpu()
+            return field.limbs_to_int(root)
 
     def get_proof(self, index: int):
         """Sibling path as canonical limbs int32[depth, 16, 1] and helper
@@ -966,7 +957,7 @@ class IndexedMerkleTree:
         ok=False lanes mean the value is present (or 0): no witness
         exists.  as_numpy=False leaves ``ok`` on the device too."""
         queries, k = _as_limb_batch(values, self.device)
-        GLOBAL_METRICS.record_queries(k)
+        count("queries", k)
         live = self._live
         w = NonInclusionWitness(**_non_inclusion(
             self.vals[:, :live], self.next_vals[:, :live],
@@ -987,11 +978,14 @@ class IndexedMerkleTree:
         inserts counted, or left on the device and counted as submitted,
         which reads nothing back."""
         if not as_numpy:
-            GLOBAL_METRICS.record_submitted(ok.numel())
+            count("inserts.submitted", ok.numel())
             return ok
-        ok = ok.cpu().numpy()
+        with span("wait"):
+            ok = ok.cpu()
+        ok = ok.numpy()
         accepted = int(ok.sum())
-        GLOBAL_METRICS.record_inserts(accepted, ok.size - accepted)
+        count("inserts.accepted", accepted)
+        count("inserts.rejected", ok.size - accepted)
         return ok
 
     def _package_witness(self, w: InsertWitness,
@@ -1022,7 +1016,6 @@ class IndexedMerkleTree:
             self._advance(1)
         w = _stack_witness(steps, self.active_depth, self.tree_depth,
                            self.device)
-        GLOBAL_METRICS.record_hashes(c * (2 + 2 * self.tree_depth))
         return self._package_witness(w, as_numpy)
 
     def insert_batch(self, values, witness: bool = False,
@@ -1034,26 +1027,29 @@ class IndexedMerkleTree:
         (``batch_witness.py``), equal on its accepted lanes to what
         ``insert_seq`` of the same values returns.  as_numpy=False keeps
         the mask (and the witness) on the device."""
-        new_vals, k = _as_limb_batch(values, self.device)
-        self._reserve(k)
-        ad = self.active_depth
-        if witness:
-            from .batch_witness import insert_batch_witness
-            fields = insert_batch_witness(
-                self.vals, self.next_vals, self.next_idxs, self.levels,
-                new_vals, self.count)
+        with span("insert_batch"):
+            with span("stage"):
+                new_vals, k = _as_limb_batch(values, self.device)
+            self._reserve(k)
+            ad = self.active_depth
+            if witness:
+                from .batch_witness import insert_batch_witness
+                fields = insert_batch_witness(
+                    self.vals, self.next_vals, self.next_idxs, self.levels,
+                    new_vals, self.count)
+                self._advance(k)
+                with span("finish"):
+                    w = _finish_witness(fields, ad, self.tree_depth)
+                return self._package_witness(w, as_numpy)
+            low_idx, low_hash, slab_start, slab_hash, ok = _plan_batch(
+                self.vals, self.next_vals, self.next_idxs, new_vals,
+                self.count, self.vals.shape[1], k)
+            with span("paths"):
+                _update_paths_batch(self.levels, low_idx, low_hash,
+                                    slab_start, slab_hash, ad,
+                                    _crossover(ad, k))
             self._advance(k)
-            GLOBAL_METRICS.record_hashes(2 * k * (1 + ad))
-            return self._package_witness(
-                _finish_witness(fields, ad, self.tree_depth), as_numpy)
-        low_idx, low_hash, slab_start, slab_hash, ok = _plan_batch(
-            self.vals, self.next_vals, self.next_idxs, new_vals, self.count,
-            self.vals.shape[1], k)
-        _update_paths_batch(self.levels, low_idx, low_hash, slab_start,
-                            slab_hash, ad, _crossover(ad, k))
-        self._advance(k)
-        GLOBAL_METRICS.record_hashes(_batch_hash_count(ad, k))
-        return self._accepted(ok, as_numpy)
+            return self._accepted(ok, as_numpy)
 
     def insert_batches(self, values, as_numpy: bool = True):
         """B chained batches (``imt_tpu`` :1187, :613): packed limbs
@@ -1063,26 +1059,30 @@ class IndexedMerkleTree:
         rebuilds every level from the one below alone; those levels are
         rebuilt once, after the last batch.  Returns the acceptance masks
         bool[B, K], on the device with as_numpy=False."""
-        arr = _as_batch_stack(values, self.device)
-        b, _, k = arr.shape
-        self._reserve(b * k)
-        ad, n = self.active_depth, self.vals.shape[1]
-        cross = _crossover(ad, k)
-        oks = []
-        for new_vals in arr:
-            low_idx, low_hash, slab_start, slab_hash, ok = _plan_batch(
-                self.vals, self.next_vals, self.next_idxs, new_vals,
-                self.count, n, k)
-            _update_paths_batch(self.levels, low_idx, low_hash, slab_start,
-                                slab_hash, cross, cross)
-            self._advance(k)
-            oks.append(ok)
-        for d in range(cross, ad):
-            self.levels[d + 1] = hashing.hash2_nodes(*_halves(self.levels[d]))
-        GLOBAL_METRICS.record_hashes(_batches_hash_count(ad, k, b))
-        oks = torch.stack(oks) if oks else torch.zeros(
-            (0, k), dtype=torch.bool, device=self.device)
-        return self._accepted(oks, as_numpy)
+        with span("insert_batches"):
+            with span("stage"):
+                arr = _as_batch_stack(values, self.device)
+            b, _, k = arr.shape
+            self._reserve(b * k)
+            ad, n = self.active_depth, self.vals.shape[1]
+            cross = _crossover(ad, k)
+            oks = []
+            for new_vals in arr:
+                low_idx, low_hash, slab_start, slab_hash, ok = _plan_batch(
+                    self.vals, self.next_vals, self.next_idxs, new_vals,
+                    self.count, n, k)
+                with span("paths"):
+                    _update_paths_batch(self.levels, low_idx, low_hash,
+                                        slab_start, slab_hash, cross, cross)
+                self._advance(k)
+                oks.append(ok)
+            with span("rebuild"):
+                for d in range(cross, ad):
+                    self.levels[d + 1] = hashing.hash2_nodes(
+                        *_halves(self.levels[d]))
+            oks = torch.stack(oks) if oks else torch.zeros(
+                (0, k), dtype=torch.bool, device=self.device)
+            return self._accepted(oks, as_numpy)
 
     # -- serialization -------------------------------------------------------
 

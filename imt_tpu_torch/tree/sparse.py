@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from ..ops import field, hashing
-from ..utils.observability import GLOBAL_METRICS, log_event
+from ..utils.observability import log_event
 from .indexed import IndexedMerkleTree, _build_levels
 
 
@@ -57,7 +57,6 @@ class SparseIndexedMerkleTree(IndexedMerkleTree):
             grow(self.vals), grow(self.next_vals), grow(self.next_idxs))
         leaves = hashing.hash3_leaf(self.vals, self.next_vals, self.next_idxs)
         self.levels = _build_levels(leaves, ad)
-        GLOBAL_METRICS.record_hashes((2 << ad) - 1)
         log_event("sparse_grow", active_depth=ad, slots=1 << ad)
 
     def to_arrays(self) -> dict:

@@ -1,9 +1,30 @@
-"""Structured logging, throughput counters and the profiler scope.
+"""Structured logging, the program's tracer, and the profiler scope.
 
 Counterpart of ``imt_tpu.utils.observability``: key=value log lines
-(``log_event``), a tiny registry of hash/insert counters with derived rates
-(``Metrics``, ``GLOBAL_METRICS``), and ``trace``, a named profiler range
-around a region that can also record a ``torch.profiler`` trace of it.
+(``log_event``) and ``trace``, a scope that can record a ``torch.profiler``
+trace of a region.  The tracer is the port's own:
+
+* ``span(name)`` marks a stretch of host time inside the program (a context
+  manager): its name, its start and end (``time.perf_counter_ns``), its
+  parent span and the id of the API call it belongs to (the outermost
+  span's: every span of one ``insert_batch`` call shares it).
+* ``count(name, n)`` adds to a counter.  Each counter keeps a cumulative
+  total, always (``total``), and, while the tracer is on, the current
+  session's share.
+* The tracer is **off** by default: a span then costs one look at the
+  profiler's state and one flag read, opens no profiler range and
+  records nothing.  It is **on** while a ``torch.profiler`` session runs,
+  or after ``enable()`` (until ``disable()``).  While the profiler runs,
+  each span is also a ``record_function("imt.<name>")`` range, so it sits
+  in the Chrome trace on the device trace's clock.
+* Spans and counts go to a **session**, kept in memory (nothing is
+  written out).  A change of the profiler's state, as a span or count sees
+  it, starts a new session while the tracer is on, and so does
+  ``enable()``: a session holds exactly one profiled stretch, or one
+  stretch of ``enable()`` without the profiler.  ``snapshot()`` gives the
+  totals and the newest session as plain data; ``reset()`` drops both.
+
+Not thread-safe, by design: one engine loop a process.
 """
 
 from __future__ import annotations
@@ -12,10 +33,16 @@ import itertools
 import logging
 import os
 import time
-from contextlib import contextmanager
-from dataclasses import dataclass, field
+from contextlib import contextmanager, nullcontext
+
+import torch
 
 logger = logging.getLogger("imt_tpu_torch")
+
+_profiler_on = torch._C._autograd._profiler_enabled
+
+# a session stops recording spans beyond this many (and counts the rest)
+MAX_SPANS = 1 << 20
 
 
 def log_event(event: str, **kv) -> None:
@@ -24,73 +51,159 @@ def log_event(event: str, **kv) -> None:
         logger.info("%s %s", event, payload)
 
 
-@dataclass
-class Metrics:
-    """Cumulative counters; thread-unsafe by design (per-host engine loop)."""
+class Session:
+    """The spans and counts of one stretch.  A span is a list [name,
+    start_ns, end_ns, parent, call]: end_ns None while it is open, parent
+    the index of its parent span in ``spans`` (None at the top)."""
 
-    hashes: int = 0
-    permutations: int = 0
-    inserts: int = 0
-    inserts_rejected: int = 0
-    inserts_submitted: int = 0
-    non_inclusion_queries: int = 0
-    _start: float = field(default_factory=time.time)
+    __slots__ = ("profiled", "spans", "counts", "dropped")
 
-    def record_hashes(self, n: int) -> None:
-        self.hashes += n
-        self.permutations += 2 * n  # 2 perms per fixed-length hash
+    def __init__(self, profiled: bool):
+        self.profiled = profiled
+        self.spans: list = []
+        self.counts: dict = {}
+        self.dropped = 0
 
-    def record_inserts(self, accepted: int, rejected: int = 0) -> None:
-        self.inserts += accepted
-        self.inserts_rejected += rejected
-
-    def record_submitted(self, n: int) -> None:
-        """Inserts dispatched whose acceptance stays on the device
-        (as_numpy=False): counted without waiting for the device."""
-        self.inserts_submitted += n
-
-    def record_queries(self, n: int) -> None:
-        self.non_inclusion_queries += n
-
-    def rates(self) -> dict:
-        dt = max(time.time() - self._start, 1e-9)
-        return {
-            "hashes_per_s": self.hashes / dt,
-            "perms_per_s": self.permutations / dt,
-            "inserts_per_s": self.inserts / dt,
-            "uptime_s": dt,
-        }
-
-    def snapshot(self) -> dict:
-        return {
-            "hashes": self.hashes,
-            "permutations": self.permutations,
-            "inserts": self.inserts,
-            "inserts_rejected": self.inserts_rejected,
-            "inserts_submitted": self.inserts_submitted,
-            "non_inclusion_queries": self.non_inclusion_queries,
-            **self.rates(),
-        }
+    def as_dict(self) -> dict:
+        keys = ("name", "start_ns", "end_ns", "parent", "call")
+        return {"profiled": self.profiled,
+                "spans": [dict(zip(keys, s)) for s in self.spans],
+                "counts": dict(self.counts), "dropped": self.dropped}
 
 
-GLOBAL_METRICS = Metrics()
+_enabled = False
+_prof = False              # the profiler's state at the last span or count
+_session: Session | None = None
+_open: list = []           # [session, index] of each open span, innermost last
+_calls = itertools.count(1)
+_totals: dict = {}
+
+
+def _recording() -> Session | None:
+    """The session to record into, or None while the tracer is off."""
+    global _prof, _session
+    prof = _profiler_on()
+    if prof != _prof:
+        _prof = prof
+        if prof or _enabled:
+            _session = Session(prof)
+    if not (prof or _enabled):
+        return None
+    if _session is None:
+        _session = Session(prof)
+    return _session
+
+
+_OFF = nullcontext()
+
+
+class _Span:
+    __slots__ = ("_name", "_session", "_entry", "_range")
+
+    def __init__(self, name: str, session: Session):
+        self._name, self._session = name, session
+
+    def __enter__(self):
+        s = self._session
+        parent = call = None
+        if _open and _open[-1][0] is s:
+            parent = _open[-1][1]
+            call = s.spans[parent][4]
+        self._range = None
+        if s.profiled:
+            self._range = torch.profiler.record_function("imt." + self._name)
+            self._range.__enter__()
+        self._entry = [s, len(s.spans)]
+        _open.append(self._entry)
+        s.spans.append([self._name, time.perf_counter_ns(), None, parent,
+                        next(_calls) if call is None else call])
+        return None
+
+    def __exit__(self, *exc):
+        s, i = self._entry
+        s.spans[i][2] = time.perf_counter_ns()
+        if _open and _open[-1] is self._entry:
+            _open.pop()
+        if self._range is not None:
+            self._range.__exit__(*exc)
+        return False
+
+
+def span(name: str):
+    """A context manager marking a stretch of host time named `name`; see
+    the module docstring."""
+    if not (_enabled or _prof or _profiler_on()):
+        return _OFF
+    s = _recording()
+    if s is None:
+        return _OFF
+    if len(s.spans) >= MAX_SPANS:
+        s.dropped += 1
+        return _OFF
+    return _Span(name, s)
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add `n` to the counter `name`: to its total, and while the tracer
+    is on to the current session's share."""
+    _totals[name] = _totals.get(name, 0) + n
+    if not (_enabled or _prof or _profiler_on()):
+        return
+    s = _recording()
+    if s is not None:
+        s.counts[name] = s.counts.get(name, 0) + n
+
+
+def total(name: str) -> int:
+    """The counter's cumulative total since the process started (or since
+    ``reset()``)."""
+    return _totals.get(name, 0)
+
+
+def enable() -> None:
+    """Turn the tracer on without the profiler, in a new session."""
+    global _enabled, _prof, _session
+    _enabled = True
+    _prof = _profiler_on()
+    _session = Session(_prof)
+
+
+def disable() -> None:
+    """Back to the default: on only while the profiler runs."""
+    global _enabled
+    _enabled = False
+
+
+def snapshot() -> dict:
+    """{"totals": the counters' totals, "session": the newest session as
+    plain data (``Session.as_dict``), None before any}."""
+    return {"totals": dict(_totals),
+            "session": None if _session is None else _session.as_dict()}
+
+
+def reset() -> None:
+    """Zero the totals and drop the sessions."""
+    global _session, _prof
+    _totals.clear()
+    _session, _prof = None, False
+    _open.clear()
+
 
 _trace_files = itertools.count()
 
 
 @contextmanager
 def trace(label: str, trace_dir: str | None = None):
-    """Profiling scope (``imt_tpu`` :78-100).  The region is always a named
-    ``torch.profiler.record_function`` range and a ``trace`` log line with
-    its wall seconds: cheap enough to leave on around batch loops.  With
+    """Profiling scope (``imt_tpu`` :78-100): the region is the span
+    `label` and a ``trace`` log line with its wall seconds.  With
     `trace_dir` set (or IMT_TRACE_DIR in the environment) it also runs a
     ``torch.profiler.profile`` over the region, with CUDA activity when a
     card is present (the card is synchronised before the profile stops, so
     the region's kernels are in it), and exports a Chrome trace,
     ``<label>.<pid>.<n>.json``, into that directory (Perfetto or
-    chrome://tracing read it)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile, record_function
+    chrome://tracing read it), in which the span is the range
+    ``imt.<label>``."""
+    from torch.profiler import ProfilerActivity, profile
 
     td = trace_dir or os.environ.get("IMT_TRACE_DIR")
     t0 = time.time()
@@ -100,14 +213,14 @@ def trace(label: str, trace_dir: str | None = None):
             [ProfilerActivity.CUDA] if cuda else [])
         os.makedirs(td, exist_ok=True)
         with profile(activities=activities) as prof:
-            with record_function(label):
+            with span(label):
                 yield
             if cuda:
                 torch.cuda.synchronize()
         prof.export_chrome_trace(os.path.join(
             td, f"{label}.{os.getpid()}.{next(_trace_files)}.json"))
     else:
-        with record_function(label):
+        with span(label):
             yield
     log_event("trace", label=label, wall_s=round(time.time() - t0, 6),
               profile_dir=td or "-")

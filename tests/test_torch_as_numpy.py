@@ -6,7 +6,8 @@ insert_batch(witness=True), insert_batches and non_inclusion_witness, on a
 dense tree and on a sparse tree that grows inside most calls, the
 as_numpy=False call equals the as_numpy=True call on a twin field by
 field, its ``ok`` is a bool tensor on the tree's device, the state after
-the call is the twin's, and the metrics count the inserts as submitted.
+the call is the twin's, and the counters count the inserts as
+submitted.
 Rejected lanes (duplicates, zero) are among the values.  The default path
 is held against ``imt_tpu`` by the other test_torch_* files.  Tolerance:
 exact.
@@ -21,7 +22,7 @@ import torch
 from imt_tpu_torch import (IndexedMerkleTree, InsertWitness,
                            NonInclusionWitness, SparseIndexedMerkleTree)
 from imt_tpu_torch.tree import indexed
-from imt_tpu_torch.utils.observability import GLOBAL_METRICS
+from imt_tpu_torch.utils import observability
 from _torch_inference import inference_mode  # noqa: F401
 
 torch.set_num_threads(1)
@@ -51,6 +52,12 @@ CALLS = {
 }
 
 
+def _totals() -> dict:
+    names = ("inserts.submitted", "inserts.accepted", "inserts.rejected",
+             "queries")
+    return {n: observability.total(n) for n in names}
+
+
 def _state(t) -> list:
     return [t.vals, t.next_vals, t.next_idxs] + t.levels
 
@@ -67,11 +74,11 @@ def test_device_resident_equals_numpy(kind, call):
     run, k, want = CALLS[call]
     tree = TREES[kind]()
     twin = copy.deepcopy(tree)
-    before = GLOBAL_METRICS.snapshot()
+    before = _totals()
     dev = _fields(run(tree, False))
-    mid = GLOBAL_METRICS.snapshot()
+    mid = _totals()
     host = _fields(run(twin, True))
-    after = GLOBAL_METRICS.snapshot()
+    after = _totals()
 
     ok = dev["ok"]
     assert isinstance(ok, torch.Tensor) and ok.dtype == torch.bool
@@ -88,14 +95,14 @@ def test_device_resident_equals_numpy(kind, call):
         assert torch.equal(x, y)
 
     accepted = int(np.sum(want)) if k else 0
-    assert mid["inserts_submitted"] == before["inserts_submitted"] + k
-    assert mid["inserts"] == before["inserts"]
-    assert after["inserts_submitted"] == mid["inserts_submitted"]
-    assert after["inserts"] == mid["inserts"] + accepted
-    assert after["inserts_rejected"] == mid["inserts_rejected"] + k - accepted
+    assert mid["inserts.submitted"] == before["inserts.submitted"] + k
+    assert mid["inserts.accepted"] == before["inserts.accepted"]
+    assert after["inserts.submitted"] == mid["inserts.submitted"]
+    assert after["inserts.accepted"] == mid["inserts.accepted"] + accepted
+    assert after["inserts.rejected"] == \
+        mid["inserts.rejected"] + k - accepted
     queries = 2 if call == "non_inclusion_witness" else 0
-    assert mid["non_inclusion_queries"] == \
-        before["non_inclusion_queries"] + queries
+    assert mid["queries"] == before["queries"] + queries
 
 
 def test_device_resident_skips_the_debug_witness_check(monkeypatch):

@@ -22,6 +22,7 @@ from imt_tpu_torch import IndexedMerkleTree, SparseIndexedMerkleTree
 from imt_tpu_torch.ops import field
 from imt_tpu_torch.tree import indexed
 from _torch_inference import inference_mode  # noqa: F401
+import _torch_lanes
 
 torch.set_num_threads(1)
 
@@ -88,8 +89,13 @@ def test_insert_batches_equals_a_loop_of_insert_batch(chained):
         assert torch.equal(x, y) and torch.equal(x, z)
 
 
-def test_chained_hash_count_matches_imt_tpu():
+def test_chained_hash_count_matches_imt_tpu(monkeypatch):
+    """The hash lanes insert_batches dispatches (counted at
+    ops/hashing.py, shape-only) against imt_tpu's formula."""
     from imt_tpu.tree import indexed as jindexed
+    _torch_lanes.shape_only(monkeypatch)
     for depth, k, b in ((4, 4, 2), (24, 4096, 8), (21, 65536, 8), (3, 1, 1)):
-        assert (indexed._batches_hash_count(depth, k, b)
-                == jindexed._batches_hash_count(depth, k, b))
+        tree = IndexedMerkleTree(depth, device=_torch_lanes.META)
+        got = _torch_lanes.lanes(lambda: tree.insert_batches(
+            _torch_lanes.values(b, 16, k), as_numpy=False))
+        assert got == jindexed._batches_hash_count(depth, k, b)

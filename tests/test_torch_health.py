@@ -24,7 +24,7 @@ from imt_tpu_torch.ops import field, hashing
 from imt_tpu_torch.tree import indexed
 from imt_tpu_torch.utils import health
 from imt_tpu_torch.utils.health import TreeCorruption, Watchdog, check_tree
-from imt_tpu_torch.utils.observability import GLOBAL_METRICS
+from imt_tpu_torch.utils import observability
 from _torch_inference import inference_mode  # noqa: F401
 
 torch.set_num_threads(1)
@@ -118,10 +118,10 @@ def test_watchdog_cadence_and_delegation():
     and keywords it took; reads pass through unaudited."""
     wd = Watchdog(SparseIndexedMerkleTree(5, initial_capacity_log2=2,
                                           device=CPU), interval=2, sample=4)
-    before = GLOBAL_METRICS.inserts_submitted
+    before = observability.total("inserts.submitted")
     ok = wd.insert_batch([30, 10], as_numpy=False)        # op 1
     assert isinstance(ok, torch.Tensor) and bool(ok.all())
-    assert GLOBAL_METRICS.inserts_submitted == before + 2
+    assert observability.total("inserts.submitted") == before + 2
     assert wd._audits == 0
     assert wd.insert_batch([20, 5], witness=True).ok.all()  # op 2 -> audit
     assert wd._audits == 1 and wd.count == 4

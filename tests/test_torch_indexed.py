@@ -23,6 +23,7 @@ from imt_tpu_torch import FIELD_MODULUS, ZERO_LEAF_HASH, IndexedMerkleTree
 from imt_tpu_torch.ops import hashing
 from imt_tpu_torch.tree import indexed
 from _torch_inference import inference_mode  # noqa: F401
+import _torch_lanes
 
 torch.set_num_threads(1)
 
@@ -165,15 +166,27 @@ def test_clamped_slices_match_lax(start):
     assert np.array_equal(xt.numpy(), np.asarray(want_u))
 
 
-def test_helpers_match_imt_tpu():
+def test_helpers_match_imt_tpu(monkeypatch):
+    """index_to_limbs and the crossover, and the hash lanes insert_batch
+    dispatches (counted at ops/hashing.py, shape-only) against imt_tpu's
+    formula.  No tree of depth 4 takes a batch of 16 (the sentinel holds
+    slot 0): that case's call raises, and (4, 15) is measured instead."""
     idx = np.array([0, 1, 65535, 65536, 2**31 - 1], dtype=np.int32)
     assert np.array_equal(
         indexed.index_to_limbs(torch.as_tensor(idx)).numpy(),
         np.asarray(jindexed.index_to_limbs(jnp.asarray(idx))).astype(np.int32))
-    for depth, k in ((6, 8), (24, 4096), (10, 1), (4, 16)):
+    _torch_lanes.shape_only(monkeypatch)
+    for depth, k in ((6, 8), (24, 4096), (10, 1), (4, 16), (4, 15)):
         assert indexed._crossover(depth, k) == jindexed._crossover(depth, k)
-        assert (indexed._batch_hash_count(depth, k)
-                == jindexed._batch_hash_count(depth, k))
+        tree = IndexedMerkleTree(depth, device=_torch_lanes.META)
+        call = lambda: tree.insert_batch(_torch_lanes.values(16, k),
+                                         as_numpy=False)
+        if k >= 1 << depth:
+            with pytest.raises(ValueError, match="tree full"):
+                call()
+            continue
+        assert _torch_lanes.lanes(call) == jindexed._batch_hash_count(depth,
+                                                                      k)
 
 
 def test_tree_full_raises():

@@ -16,7 +16,8 @@ runs the scenario on the port's single-device tree; the witness batches
 are tests/test_torch_batch_witness.py's, which holds that tree's witness
 batches against imt_tpu's.
 Without a spawn: ``_rank_plan`` against imt_tpu's on seeded inputs,
-``hash_count`` against imt_tpu's, and the masked scatter.  Tolerance:
+the hash lanes of a chain over D ranks (each rank run in turn, shape-only)
+against imt_tpu's ``hash_count``, and the masked scatter.  Tolerance:
 exact.
 """
 
@@ -32,6 +33,7 @@ from imt_tpu.parallel import local_plan as jlocal_plan
 from imt_tpu_torch.ops import field
 from imt_tpu_torch.parallel import collective_audit, local_plan
 from _torch_inference import inference_mode  # noqa: F401
+import _torch_lanes
 
 torch.set_num_threads(1)
 
@@ -233,9 +235,12 @@ def test_rank_plan_matches_imt_tpu(seed):
 @pytest.mark.parametrize("depth,k,d,b", [
     (6, 4, 2, 1), (6, 4, 4, 3), (8, 16, 2, 2), (8, 3, 4, 1), (21, 65536, 4, 8),
     (24, 4096, 8, 1), (12, 256, 8, 4)])
-def test_hash_count_matches_imt_tpu(depth, k, d, b):
-    assert local_plan.hash_count(depth, k, d, b) == \
-        jlocal_plan.hash_count(depth, k, d, b)
+def test_hash_count_matches_imt_tpu(depth, k, d, b, monkeypatch):
+    """imt_tpu's hash_count counts the top rebuild above the D subtree
+    roots (D - 1 hashes) once; every rank runs it, so the mesh dispatches
+    (D - 1)^2 lanes more."""
+    got = _torch_lanes.mesh_lanes(monkeypatch, depth, k, d, b)
+    assert got == jlocal_plan.hash_count(depth, k, d, b) + (d - 1) ** 2
 
 
 def test_put_kept_writes_only_kept_lanes():

@@ -27,7 +27,6 @@ from imt_tpu_torch import IndexedMerkleTree, SparseIndexedMerkleTree
 from imt_tpu_torch.tree import indexed
 from imt_tpu_torch.utils import checkpoint, observability
 from imt_tpu_torch.utils.config import EngineConfig, PoseidonConfig
-from imt_tpu_torch.utils.observability import GLOBAL_METRICS
 from _torch_inference import inference_mode  # noqa: F401
 
 torch.set_num_threads(1)
@@ -172,16 +171,16 @@ def test_engine_config_builds_the_tree_and_moves_metrics():
     t = EngineConfig(tree_depth=4, device=CPU).build_tree()
     assert type(t) is IndexedMerkleTree and t.device.type == CPU
 
-    before = GLOBAL_METRICS.snapshot()
+    before = observability.snapshot()["totals"]
     t.insert(7)
     assert t.insert_batch([9, 9]).tolist() == [True, False]
     t.non_inclusion_witness([8])
-    after = GLOBAL_METRICS.snapshot()
-    assert after["inserts"] == before["inserts"] + 2
-    assert after["inserts_rejected"] == before["inserts_rejected"] + 1
-    assert after["non_inclusion_queries"] == \
-        before["non_inclusion_queries"] + 1
-    assert after["hashes"] > before["hashes"]
+    after = observability.snapshot()["totals"]
+    moved = lambda n: after.get(n, 0) - before.get(n, 0)
+    assert moved("inserts.accepted") == 2
+    assert moved("inserts.rejected") == 1
+    assert moved("queries") == 1
+    assert moved("hash2.lanes") > 0 and moved("hash3.lanes") > 0
 
 
 def test_trace_scope(tmp_path, monkeypatch, caplog):
@@ -199,7 +198,7 @@ def test_trace_scope(tmp_path, monkeypatch, caplog):
     assert len(files) == 1
     with open(files[0]) as f:
         events = json.load(f)["traceEvents"]
-    assert any(e.get("name") == "unit_profiled" for e in events)
+    assert any(e.get("name") == "imt.unit_profiled" for e in events)
     lines = [r.getMessage() for r in caplog.records]
     assert any(m.startswith("trace label=unit wall_s=") and
                m.endswith("profile_dir=-") for m in lines)
