@@ -554,7 +554,7 @@ def local_insert_batch_witness(shard: Shard, new_vals: torch.Tensor, mesh,
             _put_kept(lv[lvl], li, keep & (li >= 0) & (li < w), val)
 
         (low_proof, new_proof, low_help, new_help, old_root,
-         new_root) = batch_witness._witness_walk(
+         new_root) = batch_witness.witness_walk(
             None, l_path, slots, s0, upd_val,
             (lv[shard.active_depth], 1 << shard.active_depth, base,
              scatter))

@@ -16,6 +16,11 @@ inserts give (the reference's discipline, src/indexed_merkle_tree.rs:
   node updates; the proof siblings each insert needs ("node n after step
   t") resolve with one stable sort per level, and the 2K parent hashes run
   as one launch.  The root level yields every intermediate root.
+* One CUDA graph a walk shape (``WalkGraphs``).  On the card the walk is
+  ~70 small ops a level, each issued from Python, so the card waits on the
+  host; a tree records its walk once as a CUDA graph and replays it for
+  each later batch of the same K on the same levels.  The graph runs the
+  same ops, so the bits are the eager walk's.
 
 The final-list sort and links are ``indexed._sort_batch`` and
 ``indexed._link_batch``, which the plain batched insert runs too.  The
@@ -28,14 +33,18 @@ accepted lanes.
 
 from __future__ import annotations
 
+from collections import OrderedDict
+
 import torch
 
-from ..ops import field, hashing
-from ..utils.observability import span
+from ..ops import field, hashing, poseidon_cuda
+from ..utils.observability import count, held_counts, span
 from . import indexed
 
 # the largest step: no insert step reaches it
 _NEVER = 2 ** 31 - 1
+# the most walk graphs (and keys seen once) a tree keeps
+_MAX_GRAPHS = 4
 
 
 def _ansv_prev(sigma: torch.Tensor, thresholds: torch.Tensor):
@@ -108,7 +117,7 @@ def _merge_order(node: torch.Tensor, key2: torch.Tensor, kb: int):
 
 
 def _witness_walk(levels: list, l_path: torch.Tensor, n_path: torch.Tensor,
-                  s0: int, upd_val: torch.Tensor, access=None):
+                  s0, upd_val: torch.Tensor, access=None):
     """The level-synchronous walk (``imt_tpu`` ``_witness_walk``, :86), in
     place on `levels`; or, with `access` = (root, n, base, scatter), over a
     tree of n = 2^depth slots whose levels it reaches through base(lvl,
@@ -120,7 +129,9 @@ def _witness_walk(levels: list, l_path: torch.Tensor, n_path: torch.Tensor,
     updates the node of its new slot (n_path,
     the contiguous slab s0 .. s0+K-1) and of its low leaf (l_path) on each
     level; upd_val [8, 2K] holds the new slab nodes, then the new low-path
-    nodes, of the level being walked.
+    nodes, of the level being walked.  s0 is an int or an int64 scalar
+    tensor: no per-call value is a Python number, so the walk can be
+    recorded as a CUDA graph (``WalkGraphs``).
 
     A query "sibling of X before step i" takes the latest update at or
     before step i-1: slab hits by interval arithmetic (the slab steps under
@@ -221,18 +232,119 @@ def _witness_walk(levels: list, l_path: torch.Tensor, n_path: torch.Tensor,
             new_root.contiguous())
 
 
+def _keep_recent(cache: OrderedDict, key, value) -> None:
+    cache[key] = value
+    while len(cache) > _MAX_GRAPHS:
+        cache.popitem(last=False)
+
+
+class _Graph:
+    """One walk recorded as a CUDA graph: static copies of the per-call
+    tensors (l_path, n_path, s0, upd_val), the walk's outputs, and the
+    counts a run adds (held while it was recorded, so the capture itself
+    counts nothing)."""
+
+    def __init__(self, levels: list, inputs: tuple):
+        # normal tensors: each replay copies into them, in inference mode
+        # or not
+        with torch.inference_mode(False):
+            self.inputs = tuple(x.clone() for x in inputs)
+        self.graph = torch.cuda.CUDAGraph()
+        launches = dict(poseidon_cuda.LAUNCHES)
+        # recorded on a side stream that waits for the work queued so far:
+        # torch.cuda.graph's synchronize and empty_cache would add tens of
+        # ms to each capture
+        side = torch.cuda.Stream(levels[0].device)
+        side.wait_stream(torch.cuda.current_stream(levels[0].device))
+        with held_counts() as self.counts, torch.cuda.stream(side):
+            self.graph.capture_begin()
+            try:
+                self.outputs = _witness_walk(levels, *self.inputs)
+            finally:
+                self.graph.capture_end()
+        self.launches = {name: n - launches[name] for name, n
+                         in poseidon_cuda.LAUNCHES.items()
+                         if n != launches[name]}
+        poseidon_cuda.LAUNCHES.update(launches)
+        count("walk.graph_captures")
+
+    def replay(self, inputs: tuple) -> tuple:
+        for static, x in zip(self.inputs, inputs):
+            static.copy_(x)
+        self.graph.replay()
+        for name, n in self.counts.items():
+            count(name, n)
+        for name, n in self.launches.items():
+            poseidon_cuda.LAUNCHES[name] += n
+        count("walk.graph_replays")
+        # the next replay overwrites the outputs: the caller gets its own
+        return tuple(x.clone() for x in self.outputs)
+
+
+class WalkGraphs:
+    """A tree's witness walks on the card as CUDA graphs, by key: K, the
+    device, and each level's address, shape and strides, everything of a
+    walk that is not a per-call tensor.  The first call with a key runs
+    eagerly (its lazy set-up, such as the kernel's constant tables, stays
+    out of the capture); the second records the walk and replays it, since
+    a capture runs nothing; later ones replay.  A level replaced (a sparse
+    tree's growth, ``insert_batches``' rebuilt levels, a new tree) or
+    another K gives a new key.  At most _MAX_GRAPHS graphs and as many keys
+    seen once, the least recently used dropped first; the graphs' memory
+    pools go with them and with the tree."""
+
+    def __init__(self):
+        self._graphs: OrderedDict = OrderedDict()
+        self._seen: OrderedDict = OrderedDict()
+
+    @staticmethod
+    def key(levels: list, k: int) -> tuple:
+        return k, levels[0].device, tuple(
+            (x.data_ptr(), tuple(x.shape), x.stride()) for x in levels)
+
+    def walk(self, levels: list, *inputs) -> tuple:
+        """``_witness_walk(levels, l_path, n_path, s0, upd_val)``, s0 a
+        tensor."""
+        key = self.key(levels, inputs[1].shape[0])
+        graph = self._graphs.get(key)
+        if graph is None:
+            if key not in self._seen:
+                _keep_recent(self._seen, key, None)
+                count("walk.eager")
+                return _witness_walk(levels, *inputs)
+            del self._seen[key]
+            graph = _Graph(levels, inputs)
+            _keep_recent(self._graphs, key, graph)
+        self._graphs.move_to_end(key)
+        return graph.replay(inputs)
+
+
+def witness_walk(levels: list, l_path: torch.Tensor, n_path: torch.Tensor,
+                 s0, upd_val: torch.Tensor, access=None,
+                 graphs: WalkGraphs | None = None) -> tuple:
+    """``_witness_walk``, replayed from the tree's `graphs` where the walk
+    runs on the card over the tree's own levels; op by op on the CPU and
+    with `access` (the sharded walk's collectives cannot be recorded)."""
+    if graphs is not None and access is None and upd_val.is_cuda:
+        return graphs.walk(levels, l_path, n_path, s0, upd_val)
+    count("walk.eager")
+    return _witness_walk(levels, l_path, n_path, s0, upd_val, access)
+
+
 def insert_batch_witness(vals, nvs, nis, levels: list, new_vals,
-                         count: int) -> dict:
-    """K inserts of new_vals [16, K] into the slots count+1 .. count+K,
+                         cursor: int, graphs: WalkGraphs | None = None
+                         ) -> dict:
+    """K inserts of new_vals [16, K] into the slots cursor+1 .. cursor+K,
     in place on the state (vals / nvs / nis [16, n]) and the active-prefix
     `levels` (``imt_tpu`` ``_insert_batch_witness_fn``, :240).  Returns the
     InsertWitness fields as tensors, ``ok`` bool[K] included, with the
     roots and proofs as nodes of the active prefix (the tree folds,
-    extends and decodes them, ``indexed._finish_witness``)."""
+    extends and decodes them, ``indexed._finish_witness``).  `graphs` is
+    the tree's ``WalkGraphs``."""
     n, k = vals.shape[1], new_vals.shape[1]
     m = n + k
     dev = vals.device
-    s0 = count + 1
+    s0 = cursor + 1
     slots = s0 + torch.arange(k, device=dev)
 
     # ---- the final list: the planner of the plain batched insert ----------
@@ -287,8 +399,8 @@ def insert_batch_witness(vals, nvs, nis, levels: list, new_vals,
                       dim=1))
     with span("walk"):
         (low_proof, new_proof, low_help, new_help, old_root,
-         new_root) = _witness_walk(levels, torch.where(ok, low_slot, slots),
-                                   slots, s0, upd_val)
+         new_root) = witness_walk(levels, torch.where(ok, low_slot, slots),
+                                  slots, slots[0], upd_val, graphs=graphs)
     return dict(
         ok=ok, old_root=old_root, low_leaf_val=low_val,
         low_leaf_next_val=succ_val, low_leaf_next_idx=succ_idx,

@@ -885,6 +885,8 @@ class IndexedMerkleTree:
         self.count = 0  # inserts performed (slot cursor)
         self._live = 1
         self.device = torch.device(device)
+        from .batch_witness import WalkGraphs
+        self._walk_graphs = WalkGraphs()
 
     def _alloc(self, active_depth: int) -> None:
         z = lambda: torch.zeros((field.LIMBS, 1 << active_depth),
@@ -1036,7 +1038,7 @@ class IndexedMerkleTree:
                 from .batch_witness import insert_batch_witness
                 fields = insert_batch_witness(
                     self.vals, self.next_vals, self.next_idxs, self.levels,
-                    new_vals, self.count)
+                    new_vals, self.count, self._walk_graphs)
                 self._advance(k)
                 with span("finish"):
                     w = _finish_witness(fields, ad, self.tree_depth)

@@ -23,6 +23,10 @@ trace of a region.  The tracer is the port's own:
   ``enable()``: a session holds exactly one profiled stretch, or one
   stretch of ``enable()`` without the profiler.  ``snapshot()`` gives the
   totals and the newest session as plain data; ``reset()`` drops both.
+* ``held_counts()`` diverts the counts made inside it into a dict it
+  yields and records them nowhere: work recorded now and run later (a CUDA
+  graph's capture) keeps its counts, and each run adds them with
+  ``count``.
 
 Not thread-safe, by design: one engine loop a process.
 """
@@ -77,6 +81,7 @@ _session: Session | None = None
 _open: list = []           # [session, index] of each open span, innermost last
 _calls = itertools.count(1)
 _totals: dict = {}
+_held: list = []           # the dict of each open held_counts, innermost last
 
 
 def _recording() -> Session | None:
@@ -145,13 +150,29 @@ def span(name: str):
 
 def count(name: str, n: int = 1) -> None:
     """Add `n` to the counter `name`: to its total, and while the tracer
-    is on to the current session's share."""
+    is on to the current session's share; inside ``held_counts`` to its
+    dict alone."""
+    if _held:
+        _held[-1][name] = _held[-1].get(name, 0) + n
+        return
     _totals[name] = _totals.get(name, 0) + n
     if not (_enabled or _prof or _profiler_on()):
         return
     s = _recording()
     if s is not None:
         s.counts[name] = s.counts.get(name, 0) + n
+
+
+@contextmanager
+def held_counts():
+    """Yield a dict {name: n} that takes every count made inside, in place
+    of the totals and the session; see the module docstring."""
+    held: dict = {}
+    _held.append(held)
+    try:
+        yield held
+    finally:
+        _held.pop()
 
 
 def total(name: str) -> int:

@@ -201,6 +201,29 @@ def test_hazard_iii_levels_are_read_before_they_are_written():
     assert low_h.tolist() == [[1], [1]] and new_h.tolist() == [[1], [0]]
 
 
+def test_walk_takes_s0_as_a_tensor():
+    """The slab's first slot as an int64 scalar tensor (as a CUDA graph of
+    the walk needs it) gives the walk's outputs and levels that the int
+    gives: three inserts into slots 3..5 of a depth-3 tree of arbitrary
+    nodes, the second with the first's new slot as its low leaf."""
+    rng = np.random.default_rng(5)
+    node = lambda w: torch.as_tensor(np.stack([
+        field.int_to_node(int(v)) for v in rng.integers(1, 1 << 62, w)],
+        axis=1))
+    levels = [node(8 >> d) for d in range(4)]
+    l_path, n_path, upd = torch.tensor([0, 3, 0]), torch.tensor([3, 4, 5]), \
+        node(6)
+    runs = []
+    for s0 in (3, n_path[0]):
+        lv = [x.clone() for x in levels]
+        runs.append((batch_witness._witness_walk(lv, l_path, n_path, s0,
+                                                 upd), lv))
+    (out_int, lv_int), (out_t, lv_t) = runs
+    assert all(torch.equal(a, b) for a, b in zip(out_int, out_t))
+    assert all(torch.equal(a, b) for a, b in zip(lv_int, lv_t))
+    assert not torch.equal(lv_int[0], levels[0])
+
+
 @pytest.mark.parametrize("seed", [0, 1])
 def test_hazard_iv_scans_match_brute_force(seed):
     mask = np.random.default_rng(seed).random(40) < 0.3

@@ -1,7 +1,8 @@
 """imt_tpu_torch on the card: the CUDA kernels against their plain torch
 versions, and the dense insert, the sequential witness path, the witness
-batches, the sparse tree with its chained batches, the predicates and the
-Merkle tree on CUDA against the same calls on the CPU; hash_fixed through
+batches (their walk replayed from CUDA graphs too), the sparse tree with
+its chained batches, the predicates and the Merkle tree on CUDA against
+the same calls on the CPU; hash_fixed through
 K1 against its plain version, and the C++ oracle against the hash
 kernels.
 
@@ -284,6 +285,86 @@ def test_sparse_tree_on_cuda_equals_cpu(cuda):
                     cpu.levels + [cpu.vals, cpu.next_vals, cpu.next_idxs]):
         assert torch.equal(g.cpu(), c)
     assert gpu.get_root_int() == cpu.get_root_int()
+
+
+def test_witness_walk_graphs_equal_the_cpu_walk(cuda):
+    """Witness batches whose walk the tree replays from a CUDA graph equal
+    the CPU's op-by-op walk bit for bit, every field, with the levels, the
+    state and the root after each batch: four batches of K = 8 on one
+    depth-16 tree (s0 moves under one graph), two of K = 5 (a second key),
+    a fresh tree, and a sparse tree whose prefix grows across a batch (a
+    new key).  A key's first call runs eagerly, its second captures and
+    replays; a batch launches as many hash2 as on the CPU; a witness kept
+    on the card (``as_numpy=False``) is not changed by later replays."""
+    from imt_tpu_torch.utils import observability as obs
+    walk = ("walk.eager", "walk.graph_captures", "walk.graph_replays")
+    hashes = ("hash2.launches", "hash2.lanes")
+    rng = np.random.default_rng(15)
+    seen = []
+
+    def batch(k):
+        vals = [int(v) for v in rng.integers(1, 1 << 62, k)]
+        if k >= 4:
+            vals[1], vals[-1] = vals[0], 0      # a duplicate and a zero
+            if seen:
+                vals[2] = seen[0]               # present in the first tree
+        seen.extend(vals)
+        return vals
+
+    def step(gpu, cpu, vals, as_numpy=True):
+        """One batch on both; returns the card's witness and its walk
+        counts (eager, captures, replays)."""
+        c0 = {n: obs.total(n) for n in walk + hashes}
+        k2 = poseidon_cuda.LAUNCHES["hash2_nodes"]
+        wg = gpu.insert_batch(vals, witness=True, as_numpy=as_numpy)
+        torch.cuda.synchronize()
+        got = {n: obs.total(n) - c0[n] for n in walk + hashes}
+        k2 = poseidon_cuda.LAUNCHES["hash2_nodes"] - k2
+        c1 = {n: obs.total(n) for n in hashes}
+        wc = _fields(cpu.insert_batch(vals, witness=True))
+        for n in hashes:
+            assert got[n] == obs.total(n) - c1[n], n
+        assert k2 == got["hash2.launches"] > 0
+        fg = _fields(wg)
+        for k in wc:
+            assert np.array_equal(np.asarray(fg[k]), np.asarray(wc[k])), k
+        for g, c in zip(gpu.levels + [gpu.vals, gpu.next_vals,
+                                      gpu.next_idxs],
+                        cpu.levels + [cpu.vals, cpu.next_vals,
+                                      cpu.next_idxs]):
+            assert torch.equal(g.cpu(), c)
+        assert gpu.get_root_int() == cpu.get_root_int()
+        return wg, tuple(got[n] for n in walk)
+
+    eager, capture, replay = (1, 0, 0), (0, 1, 1), (0, 0, 1)
+    gpu = IndexedMerkleTree(16, device=cuda)
+    cpu = IndexedMerkleTree(16, device="cpu")
+    counts = []
+    for i in range(4):
+        w, c = step(gpu, cpu, batch(8), as_numpy=i != 1)
+        counts.append(c)
+        if i == 1:
+            kept, frozen = w, {k: v.clone() for k, v in vars(w).items()}
+    assert counts == [eager, capture, replay, replay]
+    assert isinstance(kept.ok, torch.Tensor) and kept.ok.is_cuda
+    for k, v in frozen.items():
+        assert torch.equal(getattr(kept, k), v), k
+    assert [step(gpu, cpu, batch(5))[1] for _ in range(2)] == [eager,
+                                                               capture]
+    assert step(gpu, cpu, batch(8))[1] == replay    # K = 8's graph is kept
+
+    fresh_g = IndexedMerkleTree(16, device=cuda)
+    fresh_c = IndexedMerkleTree(16, device="cpu")
+    assert [step(fresh_g, fresh_c, batch(8))[1] for _ in range(2)] == [
+        eager, capture]
+
+    sg = SparseIndexedMerkleTree(16, initial_capacity_log2=3, device=cuda)
+    sc = SparseIndexedMerkleTree(16, initial_capacity_log2=3, device="cpu")
+    counts = []
+    for _ in range(5):                          # slots 1..10 of 8, then 16
+        counts.append(step(sg, sc, batch(2))[1])
+    assert sg.active_depth == sc.active_depth == 4
+    assert counts == [eager, capture, replay, eager, capture]
 
 
 @pytest.mark.parametrize("width", [1, 2, 1000])

@@ -98,7 +98,8 @@ def test_profiled_witness_batch_nests_and_shares_one_call(monkeypatch):
             <= top["end_ns"]
     assert sess["counts"] == {"hash3.launches": 1, "hash3.lanes": 4,
                               "hash2.launches": 3, "hash2.lanes": 12,
-                              "inserts.accepted": 2, "inserts.rejected": 0}
+                              "walk.eager": 1, "inserts.accepted": 2,
+                              "inserts.rejected": 0}
     ranges = {e.name: e for e in prof.events() if e.name.startswith("imt.")}
     assert set(ranges) == {"imt." + n for n in _names(sess)}
     outer, walk = ranges["imt.insert_batch"], ranges["imt.walk"]
@@ -150,6 +151,23 @@ def test_enable_snapshot_reset():
     assert observability.total("queries") == 3
     observability.reset()
     assert observability.snapshot() == {"totals": {}, "session": None}
+
+
+def test_held_counts_are_recorded_nowhere():
+    """Counts made inside held_counts go to its dict alone (a CUDA graph's
+    capture keeps them there, and each replay adds them)."""
+    observability.enable()
+    observability.count("queries", 2)
+    with observability.held_counts() as held:
+        observability.count("hash2.launches")
+        observability.count("hash2.lanes", 8)
+        observability.count("hash2.launches")
+    assert held == {"hash2.launches": 2, "hash2.lanes": 8}
+    assert _session()["counts"] == {"queries": 2}
+    assert observability.snapshot()["totals"] == {"queries": 2}
+    for name, n in held.items():
+        observability.count(name, n)
+    assert observability.total("hash2.lanes") == 8
 
 
 def test_trace_is_a_span():
