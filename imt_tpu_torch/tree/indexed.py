@@ -35,8 +35,9 @@ The tracer (``utils/observability.py``) sees each call as one API span
 (``insert_batch``, ``insert_batches``, ``get_root``) over spans of its
 layers: ``stage`` (host values to the device), the planner's ``sort``,
 ``link``, ``temporal`` and ``leaf_hash``, the witness ``walk`` and
-``finish``, the path update's ``paths`` and ``rebuild``, and ``wait``
-wherever the host blocks on the device.
+``finish``, the path update's ``paths`` and ``rebuild``, the zero-spine
+fold ``spine`` (a sparse tree's roots), and ``wait`` wherever the host
+blocks on the device.
 
 State: canonical limbs ``int32[16, N]`` for ``vals`` / ``next_vals`` /
 ``next_idxs``, and the Merkle levels as nodes ``int32[8, N >> d]``
@@ -517,10 +518,18 @@ def _spine_fold(root: torch.Tensor, depth: int,
     """Active-prefix roots, nodes [8, K] (a series of roots or one) ->
     full-depth roots [8, K]: one hash2 launch per level above the prefix,
     with the zero-subtree hash of the level, made contiguous, as the right
-    child."""
+    child.  The fold is the span ``spine`` and counts ``spine.launches``
+    (one a level) and ``spine.lanes`` (K a level); an empty spine (a dense
+    tree) opens and counts nothing."""
     root = root.contiguous()
-    for sib in _zero_sib_nodes(depth, full_depth, root.device):
-        root = hashing.hash2_nodes(root, sib.expand_as(root).contiguous())
+    sibs = _zero_sib_nodes(depth, full_depth, root.device)
+    if not len(sibs):
+        return root
+    with span("spine"):
+        for sib in sibs:
+            root = hashing.hash2_nodes(root, sib.expand_as(root).contiguous())
+        count("spine.launches", len(sibs))
+        count("spine.lanes", len(sibs) * root.shape[1])
     return root
 
 

@@ -13,7 +13,8 @@ witnesses as an ``IndexedMerkleTree(depth)`` fed the same values.
 
 Growth rehashes the active leaves once per growth (one hash3 launch of
 width 2^ad and one rebuild of the levels): O(1) hashes per insert,
-amortised.
+amortised.  A growth is the tracer's span ``grow`` and counts
+``sparse.grows``.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ import numpy as np
 import torch
 
 from ..ops import field, hashing
-from ..utils.observability import log_event
+from ..utils.observability import count, log_event, span
 from .indexed import IndexedMerkleTree, _build_levels
 
 
@@ -53,10 +54,13 @@ class SparseIndexedMerkleTree(IndexedMerkleTree):
         pad = (1 << ad) - self.vals.shape[1]
         grow = lambda x: torch.cat([x, x.new_zeros((field.LIMBS, pad))],
                                    dim=1)
-        self.vals, self.next_vals, self.next_idxs = (
-            grow(self.vals), grow(self.next_vals), grow(self.next_idxs))
-        leaves = hashing.hash3_leaf(self.vals, self.next_vals, self.next_idxs)
-        self.levels = _build_levels(leaves, ad)
+        with span("grow"):
+            self.vals, self.next_vals, self.next_idxs = (
+                grow(self.vals), grow(self.next_vals), grow(self.next_idxs))
+            leaves = hashing.hash3_leaf(self.vals, self.next_vals,
+                                        self.next_idxs)
+            self.levels = _build_levels(leaves, ad)
+        count("sparse.grows")
         log_event("sparse_grow", active_depth=ad, slots=1 << ad)
 
     def to_arrays(self) -> dict:

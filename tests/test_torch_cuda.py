@@ -1,8 +1,8 @@
 """imt_tpu_torch on the card: the CUDA kernels against their plain torch
 versions, and the dense insert, the sequential witness path, the witness
 batches (their walk replayed from CUDA graphs too), the sparse tree with
-its chained batches, the predicates and the Merkle tree on CUDA against
-the same calls on the CPU; hash_fixed through
+its chained batches (at depth 40 too), the predicates and the Merkle tree
+on CUDA against the same calls on the CPU; hash_fixed through
 K1 against its plain version, and the C++ oracle against the hash
 kernels.
 
@@ -281,6 +281,42 @@ def test_sparse_tree_on_cuda_equals_cpu(cuda):
         for k in wc:
             assert np.array_equal(np.asarray(wg[k]), np.asarray(wc[k])), k
     assert gpu.active_depth == cpu.active_depth == 4
+    for g, c in zip(gpu.levels + [gpu.vals, gpu.next_vals, gpu.next_idxs],
+                    cpu.levels + [cpu.vals, cpu.next_vals, cpu.next_idxs]):
+        assert torch.equal(g.cpu(), c)
+    assert gpu.get_root_int() == cpu.get_root_int()
+
+
+def test_depth40_sparse_tree_on_cuda_equals_cpu(cuda):
+    """Aztec's height-40 nullifier tree (the benchmark's
+    ``nullifier-d40-2p22``) at a 2^12 prefix: four blocks of 256 through
+    insert_batches, with a duplicate across blocks and a zero, then one
+    witness batch of 256: masks, every root (28 spine levels each), every
+    witness field (proofs 40 deep) and the state bit for bit; a root read
+    counts 28 spine launches on either device."""
+    from imt_tpu_torch.utils import observability as obs
+    gpu = SparseIndexedMerkleTree(40, initial_capacity_log2=12, device=cuda)
+    cpu = SparseIndexedMerkleTree(40, initial_capacity_log2=12, device="cpu")
+    vals = field.random_limbs(40, 5 * 256).reshape(16, 5, 256) \
+        .transpose(1, 0, 2).copy()
+    vals[1][:, 0] = vals[0][:, 5]
+    vals[2][:, 7] = 0
+    masks = []
+    for block in vals[:4]:
+        masks.append(gpu.insert_batches(block[None])[0])
+        assert np.array_equal(masks[-1], cpu.insert_batches(block[None])[0])
+        before = obs.total("spine.launches")
+        assert gpu.get_root_int() == cpu.get_root_int()
+        assert obs.total("spine.launches") - before == 2 * 28
+    assert masks[0].all() and masks[3].all()
+    assert np.flatnonzero(~masks[1]).tolist() == [0]
+    assert np.flatnonzero(~masks[2]).tolist() == [7]
+    wg = _fields(gpu.insert_batch(vals[4], witness=True))
+    wc = _fields(cpu.insert_batch(vals[4], witness=True))
+    assert wg["low_leaf_proof"].shape == (40, 16, 256)
+    for k in wc:
+        assert np.array_equal(np.asarray(wg[k]), np.asarray(wc[k])), k
+    assert gpu.active_depth == cpu.active_depth == 12
     for g, c in zip(gpu.levels + [gpu.vals, gpu.next_vals, gpu.next_idxs],
                     cpu.levels + [cpu.vals, cpu.next_vals, cpu.next_idxs]):
         assert torch.equal(g.cpu(), c)
