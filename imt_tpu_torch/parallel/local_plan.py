@@ -147,13 +147,11 @@ def _candidates(shard: Shard, queries: torch.Tensor):
     if shard.off == 0 and live:
         participant[0] = True                   # the slot-0 sentinel
     part_s = participant[order]
-    pos = torch.arange(m, device=dev)
     inv = torch.empty_like(order)
-    inv[order] = pos
+    inv[order] = torch.arange(m, device=dev)
     qpos = inv[live:]
     out = []
-    for p in (indexed._prev_true(part_s, -1)[qpos],
-              indexed._next_true(part_s)[qpos]):
+    for p in indexed._true_neighbours(part_s, qpos):
         found = (p >= 0) & (p < m)
         e = order[p.clamp(0, m - 1)].clamp(max=max(live - 1, 0))
         val = vals[:, e] * found if live else queries * 0

@@ -355,11 +355,10 @@ def insert_batch_witness(vals, nvs, nis, levels: list, new_vals,
     # ---- temporal planning (imt_tpu :308-362) -------------------------------
     with span("temporal"):
         # nearest existing participant (slot 0 or an occupied slot, in the
-        # state before the batch) below / above each sorted position
+        # state before the batch) below / above each new entry
         part_s = torch.cat([indexed._participants(vals), torch.zeros(
             k, dtype=torch.bool, device=dev)])[order]
-        prv_e = indexed._prev_true(part_s, -1)
-        nxt_e = indexed._next_true(part_s)
+        prv_e, nxt_e = indexed._true_neighbours(part_s, pos_new)
 
         # intra-batch chains: ANSV over the new entries in value order;
         # sigma is an accepted entry's step (its batch index), else never
@@ -371,9 +370,8 @@ def insert_batch_witness(vals, nvs, nis, levels: list, new_vals,
         hi_pos = torch.where(hi_f.flip(0), spn[(k - 1 - hi_r.flip(0))], m)
         rank = torch.empty_like(ids)
         rank[ids] = torch.arange(k, device=dev)
-        low_pos = torch.maximum(prv_e[pos_new], lo_pos[rank]).clamp(
-            0, m - 1)
-        succ_pos = torch.minimum(nxt_e[pos_new], hi_pos[rank])
+        low_pos = torch.maximum(prv_e, lo_pos[rank]).clamp(0, m - 1)
+        succ_pos = torch.minimum(nxt_e, hi_pos[rank])
         has_succ = succ_pos < m
         low_entry = order[low_pos]
         succ_entry = order[succ_pos.clamp(0, m - 1)]

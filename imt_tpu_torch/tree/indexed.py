@@ -351,6 +351,23 @@ def _prev_true(mask: torch.Tensor, none: int) -> torch.Tensor:
     return torch.cat([prv.new_full((1,), none), prv[:-1]])
 
 
+def _true_neighbours(mask: torch.Tensor, pos: torch.Tensor):
+    """(prv, nxt) int64[K]: the last true entry of `mask` bool[M] strictly
+    before each position of `pos` int64[K], -1 where there is none, and
+    the first strictly after it, M where there is none: what
+    ``_prev_true(mask, -1)[pos]`` and ``_next_true(mask)[pos]`` give, for
+    one count scan over M and two K-sized searches.  With c the inclusive
+    count of true entries, the b-th true entry is the first i with
+    c[i] >= b: the one before p is number c[p - 1] (none if 0), the one
+    after it number c[p] + 1 (M if there are fewer)."""
+    count("plan.rank_scans")
+    count("plan.rank_queries", pos.numel())
+    c = torch.cumsum(mask, 0, dtype=torch.int32)
+    before = torch.where(pos > 0, c[(pos - 1).clamp(min=0)], 0)
+    prv = torch.where(before > 0, torch.searchsorted(c, before), -1)
+    return prv, torch.searchsorted(c, c[pos] + 1)
+
+
 def _entry_vals(vals, new_vals, entry: torch.Tensor, n: int):
     """Values [16, K] of sort entries `entry` int64[K]: entries below n are
     the slots of `vals`, the rest the new values."""
@@ -405,20 +422,20 @@ def _link_batch(vals, nvs, nis, new_vals, sort, slab_start: int, n: int,
     order, entry_slot, accepted, pos_new = sort
     m = n + k
     slots = slab_start + torch.arange(k, device=vals.device)
-    # successor / predecessor positions among accepted entries (position 0,
-    # the slot-0 sentinel, is always accepted)
-    nxt, prv = _next_true(accepted), _prev_true(accepted, 0)
+    # each new entry's predecessor / successor position among accepted
+    # entries (position 0, the slot-0 sentinel, is always accepted and
+    # sorts first, so every new entry has a predecessor)
+    prv_new, nxt_new = _true_neighbours(accepted, pos_new)
 
     # Everything below is K-sized: only the new entries and their low
     # leaves change.
     ok = accepted[pos_new]
-    nxt_new = nxt[pos_new]
     linked = (nxt_new < m) & ok
     succ_entry = order[nxt_new.clamp(0, m - 1)]
     succ_val = torch.where(linked, _entry_vals(vals, new_vals, succ_entry, n),
                            0)
     succ_slot = torch.where(linked, entry_slot[succ_entry], 0)
-    prev_slot = entry_slot[order[prv[pos_new].clamp(0, m - 1)]]
+    prev_slot = entry_slot[order[prv_new.clamp(0, m - 1)]]
 
     # New-slot rows (zeros on rejected lanes: the consumed-slot contract),
     # then the low-leaf pointer rewrites of accepted lanes, then the new
@@ -768,16 +785,13 @@ def _non_inclusion(vals, nvs, nis, levels, queries, full_depth: int) -> dict:
 
     participant = torch.cat([_participants(vals),
                              torch.zeros(k, dtype=torch.bool, device=dev)])
-    pos = torch.arange(m, device=dev)
-    # last participant strictly before each sorted position
-    prv = torch.where(participant[order], pos, -1).cummax(0).values
-    prv = torch.cat([torch.full((1,), -1, device=dev), prv[:-1]])
-    cand = order[prv.clamp(0, m - 1)]
     inv = torch.empty_like(order)
-    inv[order] = pos
+    inv[order] = torch.arange(m, device=dev)
     qpos = inv[n:]
-    found = prv[qpos] >= 0
-    low_idx = torch.where(found, cand[qpos], 0)
+    # last participant strictly before each query's sorted position
+    prv = _true_neighbours(participant[order], qpos)[0]
+    found = prv >= 0
+    low_idx = torch.where(found, order[prv.clamp(0, m - 1)], 0)
 
     low_val, low_nv, low_ni = vals[:, low_idx], nvs[:, low_idx], \
         nis[:, low_idx]

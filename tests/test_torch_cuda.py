@@ -287,6 +287,22 @@ def test_sparse_tree_on_cuda_equals_cpu(cuda):
     assert gpu.get_root_int() == cpu.get_root_int()
 
 
+@pytest.mark.parametrize("share", [0.0, 0.01, 0.5, 1.0])
+def test_true_neighbours_on_the_card_equal_the_full_scans(cuda, share):
+    """The planner's lookups at the d40 cell's size, M = 2^22 + 2,048,
+    with a random mask and 2,048 sorted random queries (0 and M - 1
+    among them): what the M-sized scans give at those positions."""
+    m, k = (1 << 22) + 2048, 2048
+    g = torch.Generator(device=cuda).manual_seed(17)
+    mask = torch.rand(m, generator=g, device=cuda) < share
+    pos = torch.randint(0, m, (k,), generator=g, device=cuda)
+    pos[:2] = torch.tensor([0, m - 1])
+    pos = pos.sort().values
+    prv, nxt = indexed._true_neighbours(mask, pos)
+    assert torch.equal(prv, indexed._prev_true(mask, -1)[pos])
+    assert torch.equal(nxt, indexed._next_true(mask)[pos])
+
+
 def test_depth40_sparse_tree_on_cuda_equals_cpu(cuda):
     """Aztec's height-40 nullifier tree (the benchmark's
     ``nullifier-d40-2p22``) at a 2^12 prefix: four blocks of 256 through

@@ -152,6 +152,26 @@ def test_lex_order_matches_numpy_lexsort(seed):
     assert np.array_equal(got.numpy(), want)
 
 
+@pytest.mark.parametrize("m", [1, 2, 37, 4096])
+@pytest.mark.parametrize("kind", ["random", "none", "all", "first", "last"])
+def test_true_neighbours_match_the_full_scans(kind, m):
+    """The planner's K-sized lookups give what the M-sized scans give at
+    the query positions, bit for bit: at 0, at M - 1 and at random
+    positions (repeated, in no order)."""
+    rng = np.random.default_rng(m)
+    mask = {"random": rng.random(m) < 0.3, "none": np.zeros(m, bool),
+            "all": np.ones(m, bool), "first": np.arange(m) == 0,
+            "last": np.arange(m) == m - 1}[kind]
+    mask = torch.as_tensor(mask)
+    pos = torch.as_tensor(np.concatenate([[0, m - 1],
+                                          rng.integers(0, m, 64)]))
+    prv, nxt = indexed._true_neighbours(mask, pos)
+    want_prv = indexed._prev_true(mask, -1)[pos]
+    want_nxt = indexed._next_true(mask)[pos]
+    assert prv.dtype == nxt.dtype == torch.int64
+    assert torch.equal(prv, want_prv) and torch.equal(nxt, want_nxt)
+
+
 @pytest.mark.parametrize("start", [-3, 0, 3, 6, 7, 12])
 def test_clamped_slices_match_lax(start):
     x = np.arange(3 * 10, dtype=np.int32).reshape(3, 10)

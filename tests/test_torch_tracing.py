@@ -98,8 +98,9 @@ def test_profiled_witness_batch_nests_and_shares_one_call(monkeypatch):
             <= top["end_ns"]
     assert sess["counts"] == {"hash3.launches": 1, "hash3.lanes": 4,
                               "hash2.launches": 3, "hash2.lanes": 12,
-                              "walk.eager": 1, "inserts.accepted": 2,
-                              "inserts.rejected": 0}
+                              "walk.eager": 1, "plan.rank_scans": 2,
+                              "plan.rank_queries": 4,
+                              "inserts.accepted": 2, "inserts.rejected": 0}
     ranges = {e.name: e for e in prof.events() if e.name.startswith("imt.")}
     assert set(ranges) == {"imt." + n for n in _names(sess)}
     outer, walk = ranges["imt.insert_batch"], ranges["imt.walk"]
@@ -125,6 +126,22 @@ def test_one_session_a_profiled_stretch():
     assert second["profiled"] and _names(second) == ["get_root", "wait"]
     assert second["counts"] == {}
     assert second["spans"][0]["call"] != first["spans"][0]["call"]
+
+
+def test_planner_counts_its_rank_scans():
+    """One count scan a plain block (the link), two a witness batch (the
+    temporal planning and the link), each looking up the block's K new
+    entries."""
+    tree = IndexedMerkleTree(4, device=CPU)
+    observability.enable()
+    tree.insert_batches([[11, 12, 13], [14, 15, 16]])
+    assert _session()["counts"]["plan.rank_scans"] == 2
+    assert _session()["counts"]["plan.rank_queries"] == 2 * 3
+    observability.enable()
+    tree.insert_batch([21, 22], witness=True)
+    assert _session()["counts"]["plan.rank_scans"] == 2
+    assert _session()["counts"]["plan.rank_queries"] == 2 * 2
+    assert observability.total("plan.rank_scans") == 4
 
 
 def test_enable_snapshot_reset():
