@@ -150,6 +150,7 @@ if __name__ == "__main__" and not os.path.isdir(
 from imt_tpu_torch.ops.perm_work import (PERM_WORK, PRODUCT,  # noqa: E402
                                          R_F, R_P, REDC_NARROW, REDC_WIDE,
                                          SQUARE, least_perm_work)
+from imt_tpu_torch.utils import observability  # noqa: E402
 from imt_tpu_torch.utils.checks import (rebuild_root,  # noqa: E402
                                         set_semantics)
 
@@ -835,7 +836,7 @@ def planted_stream(field, seed: int, n: int, k: int) -> list:
     return batches
 
 
-def phase_slice(torch, pc, field, indexed, reference_oracle) -> dict:
+def phase_slice(torch, field, indexed, reference_oracle) -> dict:
     dev = torch.device("cuda")
     tree = indexed.IndexedMerkleTree(DEPTH)
     batches = planted_stream(field, SEED + 1, N_BATCHES, K)
@@ -843,7 +844,7 @@ def phase_slice(torch, pc, field, indexed, reference_oracle) -> dict:
 
     seen: set = set()
     times, oks = [], []
-    pc.reset_launch_counts()
+    start = launched()
     for b in batches:
         t0 = time.perf_counter()
         ok = tree.insert_batch(b)
@@ -851,7 +852,7 @@ def phase_slice(torch, pc, field, indexed, reference_oracle) -> dict:
         times.append(time.perf_counter() - t0)
         oks.append(ok)
     root = tree.get_root_int()
-    launches = dict(pc.LAUNCHES)
+    launches = launched(start)
     print(f"phase 4: depth {DEPTH}, {N_BATCHES} batches of K={K}: launches "
           f"{launches}")
     check_launched("insert_batch", launches)
@@ -964,7 +965,7 @@ def golden_path(indexed, reference_oracle, field, dev,
             raise AssertionError(f"golden path insert {v}: root differs")
 
 
-def phase_sequential(torch, pc, field, indexed, merkle, reference_oracle,
+def phase_sequential(torch, field, indexed, merkle, reference_oracle,
                      slice_out: dict, dev) -> dict:
     rng = np.random.default_rng(SEED + 3)
     tree, seen = slice_out["tree"], slice_out["seen"]
@@ -980,7 +981,7 @@ def phase_sequential(torch, pc, field, indexed, merkle, reference_oracle,
     root0 = tree.get_root_int()
     torch.cuda.synchronize()
 
-    pc.reset_launch_counts()
+    start = launched()
     w = tree.insert_seq(vals)
     pred = indexed.insert_leaf(
         w.old_root, w.low_leaf_val, w.low_leaf_next_val, w.low_leaf_next_idx,
@@ -1047,7 +1048,7 @@ def phase_sequential(torch, pc, field, indexed, merkle, reference_oracle,
           f"verify, the corrupted one fails (root {mt.get_root_int():#x})")
 
     golden_path(indexed, reference_oracle, field, dev)
-    launches = dict(pc.LAUNCHES)
+    launches = launched(start)
     print(f"phase 4b: depth-6 golden path {GOLDEN} through insert: roots and "
           f"every witness field equal the python-int oracle's; launches "
           f"{launches}")
@@ -1166,7 +1167,7 @@ def same_state(a, b) -> bool:
         [b.vals, b.next_vals, b.next_idxs] + b.levels))
 
 
-def phase_sparse(torch, pc, field, indexed, sparse, checkpoint, dev,
+def phase_sparse(torch, field, indexed, sparse, checkpoint, dev,
                  snap_dir: str) -> dict:
     """Config 5's shape: a depth-32 sparse tree with 2^21 slots held, 16
     batches of K = 65536 through insert_batches in groups of 8; the tree
@@ -1178,14 +1179,14 @@ def phase_sparse(torch, pc, field, indexed, sparse, checkpoint, dev,
         C5_DEPTH, initial_capacity_log2=C5_CAPACITY, device=dev)
     groups = [torch.as_tensor(g, device=dev) for g in groups]
     torch.cuda.synchronize()
-    pc.reset_launch_counts()
+    start = launched()
     oks, group_s = [], []
     for g in groups:
         t0 = time.perf_counter()
         oks.append(tree.insert_batches(g))
         torch.cuda.synchronize()
         group_s.append(time.perf_counter() - t0)
-    launches = dict(pc.LAUNCHES)
+    launches = launched(start)
     print(f"phase 6: depth {C5_DEPTH}, 2^{C5_CAPACITY} slots held, "
           f"{C5_BATCHES} batches of K={C5_K} in groups of {C5_GROUP} "
           f"(insert_batches): launches {launches}")
@@ -1249,7 +1250,7 @@ def phase_sparse(torch, pc, field, indexed, sparse, checkpoint, dev,
             "stream": stream, "oks": got}
 
 
-def phase_witness(torch, pc, field, indexed, sparse, dev) -> dict:
+def phase_witness(torch, field, indexed, sparse, dev) -> dict:
     """Config 3w's shape: witness batches of K = 4096 into a depth-16
     sparse tree (2^16 slots held, as bench.py sizes it), then one into a
     depth-32 tree grown from the default 2^10 slots; checked against
@@ -1270,7 +1271,7 @@ def phase_witness(torch, pc, field, indexed, sparse, dev) -> dict:
     torch.cuda.synchronize()
     # the roots after each batch are kept as the prefix's root nodes (a
     # copy, no kernel) and decoded once the counts are read
-    pc.reset_launch_counts()
+    start = launched()
     ws, batch_s, prefix_roots = [], [], []
     for b in batches[:W_BATCHES]:
         t0 = time.perf_counter()
@@ -1282,7 +1283,7 @@ def phase_witness(torch, pc, field, indexed, sparse, dev) -> dict:
     wd = deep.insert_batch(batches[W_BATCHES], witness=True)
     torch.cuda.synchronize()
     deep_s = time.perf_counter() - t0
-    launches = dict(pc.LAUNCHES)
+    launches = launched(start)
     roots += [root_int(field, indexed, tree, r) for r in prefix_roots]
     print(f"phase 6: depth {W_DEPTH}, {W_BATCHES} witness batches of K={W_K}, "
           f"then one at depth 32: launches {launches}")
@@ -1357,11 +1358,16 @@ def resume_launches(active_depth: int, full_depth: int) -> tuple:
             {"hash2_nodes": full_depth - active_depth, "nodes_to_limbs": 1})
 
 
-def launched(pc, since: dict | None = None) -> dict:
-    """The entry points launched (nonzero counts), since `since`."""
+def launched(since: dict | None = None, nonzero: bool = False) -> dict:
+    """Each Poseidon entry point's launches since `since` (an earlier
+    ``launched()``; all so far without it), read from the tracer's
+    ``cuda.<entry point>`` counters, which each launch adds to where it is
+    made (``ops/poseidon_cuda.py``); with `nonzero`, only the entry points
+    launched."""
     since = since or {}
-    return {k: v - since.get(k, 0) for k, v in pc.LAUNCHES.items()
-            if v - since.get(k, 0)}
+    n = {k: observability.total("cuda." + k) - since.get(k, 0)
+         for k in POSEIDON}
+    return {k: v for k, v in n.items() if v or not nonzero}
 
 
 def group_semantics(prior: np.ndarray, group: np.ndarray) -> np.ndarray:
@@ -1395,7 +1401,7 @@ def tool(name: str):
     return load_script(os.path.join("tools", f"{name}.py"))
 
 
-def phase_operations(torch, pc, field, indexed, sparse_out: dict, dev,
+def phase_operations(torch, field, indexed, sparse_out: dict, dev,
                      work_dir: str) -> dict:
     """The operations layer at config 5's scale: resume phase 6's snapshot,
     audit it and catch a flipped bit, insert one more pipelined group under
@@ -1409,15 +1415,15 @@ def phase_operations(torch, pc, field, indexed, sparse_out: dict, dev,
 
     # -- resume: the snapshot back on the card, to phase 6's root and count
     torch.cuda.synchronize()
-    pc.reset_launch_counts()
+    start = launched()
     t0 = time.perf_counter()
     resumed = checkpoint.load(path, device=dev)
     torch.cuda.synchronize()
     out["load_s"] = time.perf_counter() - t0
-    load_counts = launched(pc)
+    load_counts, loaded = launched(start, nonzero=True), launched()
     root = resumed.get_root_int()
-    root_counts = launched(pc, load_counts)
-    launches["resume"] = dict(pc.LAUNCHES)
+    root_counts = launched(loaded, nonzero=True)
+    launches["resume"] = launched(start)
     check_launched("resume", launches["resume"])
     if (root, resumed.count, resumed.active_depth) != (
             sparse_out["root"], sparse_out["count"], C5_CAPACITY):
@@ -1505,7 +1511,7 @@ def phase_operations(torch, pc, field, indexed, sparse_out: dict, dev,
     wd = Watchdog(resumed, interval=WD_INTERVAL, sample=WD_SAMPLE)
     trace_dir = os.path.join(work_dir, "trace")
     submitted = observability.total("inserts.submitted")
-    pc.reset_launch_counts()
+    start = launched()
     t_trace = time.perf_counter()
     with observability.trace("config5_group", trace_dir=trace_dir):
         # the profiler has started; a wait for the card inside the call
@@ -1520,7 +1526,7 @@ def phase_operations(torch, pc, field, indexed, sparse_out: dict, dev,
         torch.cuda.synchronize()
         out["group_s"] = time.perf_counter() - t0
     out["trace_s"] = time.perf_counter() - t_trace
-    group_counts = launched(pc)
+    group_counts = launched(start, nonzero=True)
     if not (isinstance(ok, torch.Tensor) and ok.device.type == dev.type
             and ok.dtype == torch.bool and ok.shape == want.shape):
         raise AssertionError("as_numpy=False did not leave ok on the card")
@@ -1567,22 +1573,22 @@ def phase_operations(torch, pc, field, indexed, sparse_out: dict, dev,
             int(rng.integers(1 << 31)), WD_SMALL_K, 253), as_numpy=False))
     if wd._audits != 1 or not bool(torch.stack(small).all()):
         raise AssertionError("the watchdog did not audit on its 8th call")
-    launches["watchdog_group"] = dict(pc.LAUNCHES)
+    launches["watchdog_group"] = launched(start)
     check_launched("watchdog_group", launches["watchdog_group"])
     print(f"phase 7: {WD_INTERVAL - 1} more insert_batch(as_numpy=False) "
           f"calls of K={WD_SMALL_K}: the watchdog audited once, on the "
           f"{WD_INTERVAL}th call (sample {WD_SAMPLE}); the path's launches "
-          f"{launched(pc)}")
+          f"{launched(start, nonzero=True)}")
     del wd, resumed
     torch.cuda.empty_cache()
 
     # -- the kill-resume drill on the card
     drill_dir = os.path.join(work_dir, "drill")
     os.makedirs(drill_dir)
-    pc.reset_launch_counts()
+    start = launched()
     drill = tool("soak_indexed_torch").kill_resume(drill_dir, dev.type,
                                                    **DRILL)
-    launches["drill"] = dict(pc.LAUNCHES)
+    launches["drill"] = launched(start)
     check_launched("drill", launches["drill"])
     out["drill"] = drill
     print(f"phase 7: kill-resume drill (EngineConfig(tree_depth=32, "
@@ -1592,7 +1598,7 @@ def phase_operations(torch, pc, field, indexed, sparse_out: dict, dev,
           f"resumed and replayed in {drill['resume_s']} s to the "
           f"uninterrupted worker's root {drill['root']:#x} and count "
           f"{drill['count']}; neither worker built a kernel; launches "
-          f"{launched(pc)}")
+          f"{launched(start, nonzero=True)}")
 
     # -- the soak on the card
     t0 = time.perf_counter()
@@ -1706,7 +1712,7 @@ def start_ranks(target: str, world: int, kwargs: dict, work_dir: str,
     return Ranks(context, work_dir, timeout)
 
 
-def phase_nccl_one(torch, pc, field, slice_out: dict, dev, work_dir: str):
+def phase_nccl_one(torch, field, slice_out: dict, dev, work_dir: str):
     """8a: NCCL at world size 1 on the card.  A ShardedIndexedMerkleTree at
     phase 4's shape takes the plain step (no shard-local program may run,
     as tests/test_parallel.py:146 holds) and reaches phase 4's root; then
@@ -1733,7 +1739,7 @@ def phase_nccl_one(torch, pc, field, slice_out: dict, dev, work_dir: str):
         fail = mock.Mock(side_effect=AssertionError(
             "the shard-local planner ran on a 1-device mesh"))
         torch.cuda.synchronize()
-        pc.reset_launch_counts()
+        start = launched()
         with mock.patch.multiple(local_plan, local_insert_batch=fail,
                                  local_insert_batches=fail,
                                  local_insert_batch_witness=fail,
@@ -1741,7 +1747,7 @@ def phase_nccl_one(torch, pc, field, slice_out: dict, dev, work_dir: str):
             for b in batches:
                 tree.insert_batch(b)
         torch.cuda.synchronize()
-        launches = dict(pc.LAUNCHES)
+        launches = launched(start)
         check_launched("sharded_nccl1", launches)
         if tree.is_sharded or tree.get_root_int() != slice_out["root"]:
             raise AssertionError("8a: the 1-rank tree is sharded or its root "
@@ -1792,7 +1798,6 @@ def sharded_rank(rank: int, world: int, snapshot: str, work_dir: str,
     import torch.distributed as dist
 
     from imt_tpu_torch.ops import field
-    from imt_tpu_torch.ops import poseidon_cuda as pc
     from imt_tpu_torch.parallel import collectives, sharded
     from imt_tpu_torch.tree import indexed
     from imt_tpu_torch.tree.merkle import MerkleTree
@@ -1822,7 +1827,7 @@ def sharded_rank(rank: int, world: int, snapshot: str, work_dir: str,
 
     # -- the main path, its launches counted from 0
     collectives.reset_counts()
-    pc.reset_launch_counts()
+    start = launched()
     t0 = time.perf_counter()
     oks = []
     for g in groups:
@@ -1834,7 +1839,7 @@ def sharded_rank(rank: int, world: int, snapshot: str, work_dir: str,
     nw = tree.non_inclusion_witness(queries)
     w = tree.insert_batch(wvals, witness=True)
     sync()
-    out["launches"] = dict(pc.LAUNCHES)
+    out["launches"] = launched(start)
     out["calls"] = {p: list(c) for p, c in collectives.CALLS.items()}
     out["path_s"] = time.perf_counter() - t0
 
@@ -1897,7 +1902,7 @@ def sharded_rank(rank: int, world: int, snapshot: str, work_dir: str,
     return out
 
 
-def phase_sharded(torch, pc, field, sparse_out: dict, work_dir: str,
+def phase_sharded(torch, field, sparse_out: dict, work_dir: str,
                   dev) -> dict:
     """8b: four gloo ranks on the one card (``sharded_rank``), each a
     process of its own (``start_ranks``) with a group timeout, joined with
@@ -1989,7 +1994,7 @@ def on_host_cores(fn, cols, chunk: int = 4096):
         return np.concatenate(list(parts))
 
 
-def phase_oracle(torch, pc, field, oracle, bench, dev) -> None:
+def phase_oracle(torch, hashing, field, oracle, bench, dev) -> None:
     """9a: the port's C++ oracle, built with g++, reproduces H(0,0,0) and
     equals the card's hash kernels bit for bit at the ragged width, phase
     3's edge values in the first lanes, through the limb bridge; then its
@@ -2006,8 +2011,8 @@ def phase_oracle(torch, pc, field, oracle, bench, dev) -> None:
     cols = [np.ascontiguousarray(np.roll(base, s, axis=1))
             for s in (0, 7, 101)]
     t = [torch.as_tensor(c, device=dev) for c in cols]
-    kernel = {"hash2": pc.hash2(t[0], t[1]).cpu().numpy(),
-              "hash3": pc.hash3(*t).cpu().numpy()}
+    kernel = {"hash2": hashing.hash2(t[0], t[1]).cpu().numpy(),
+              "hash3": hashing.hash3(*t).cpu().numpy()}
     u = [oracle.limbs_to_u64(c) for c in cols]
     t0 = time.perf_counter()
     native = {"hash2": on_host_cores(oracle.hash2_u64, u[:2]),
@@ -2129,21 +2134,21 @@ def phase_hash_fixed(torch, pc, plain, hashing, field, dev) -> dict:
     cases = [(n, w) for w in FIXED_WIDTHS for n in FIXED_ARITIES]
     cases.append((FIXED_WIDE_ARITY, FILL_WIDTH))
     torch.cuda.synchronize()
-    pc.reset_launch_counts()
+    start = launched()
     outs, k1_outs = {}, {}
     for n, w in cases:
-        before = dict(pc.LAUNCHES)
+        before = launched()
         outs[n, w] = hashing.hash_fixed(cols[w][:n])
         if n in (2, 3):
             k1_outs[n, w] = pc.hash_fixed(cols[w][:n])
-        got = launched(pc, before)
+        got = launched(before, nonzero=True)
         want = {"permute_n": n // 2 + 1, "hash2_nodes": int(n == 2),
                 "hash3_leaf": int(n == 3)}
         if {k: got.get(k, 0) for k in want} != want:
             raise AssertionError(f"hash_fixed arity {n} width {w}: launches "
                                  f"{got}, expected {want}")
     torch.cuda.synchronize()
-    launches = dict(pc.LAUNCHES)
+    launches = launched(start)
     print(f"phase 9c: hash_fixed, arities {FIXED_ARITIES[0]}-"
           f"{FIXED_ARITIES[-1]} at widths {FIXED_WIDTHS} and arity "
           f"{FIXED_WIDE_ARITY} at {FILL_WIDTH}: launches {launches}, K1 "
@@ -2198,7 +2203,7 @@ def check_bench(parity: dict, headline: dict, lines: list) -> None:
                                  "false")
 
 
-def phase_bench(torch, pc, bench, parity_tool, card: str) -> dict:
+def phase_bench(torch, bench, parity_tool, card: str) -> dict:
     """10: bench_torch.py on the card, its kernels' launches counted from 0:
     the parity check, the headline with its full protocol at BENCH_WIDTH
     lanes, every config at full size.  Each line is printed beside the
@@ -2206,7 +2211,7 @@ def phase_bench(torch, pc, bench, parity_tool, card: str) -> dict:
     t0 = time.perf_counter()
     dev = torch.device("cuda")
     torch.cuda.synchronize()
-    pc.reset_launch_counts()
+    start = launched()
     parity = parity_tool.run_parity("cuda")
     k1, k2 = bench.HEADLINE_KS
     rate, extras = bench.bench_perms(BENCH_WIDTH, k1=k1, k2=k2, device=dev)
@@ -2214,7 +2219,7 @@ def phase_bench(torch, pc, bench, parity_tool, card: str) -> dict:
                                  extras, dev)
     lines = [bench.config_result(c, device=dev) for c in BENCH_CONFIGS]
     torch.cuda.synchronize()
-    launches = dict(pc.LAUNCHES)
+    launches = launched(start)
     print(f"phase 10: parity on the card: {parity['checks']}")
     for line in [headline] + lines:
         print(f"phase 10: {json.dumps(line)} [{card}]")
@@ -2506,9 +2511,9 @@ def phase_numbers(torch, pc, plain, vr, vc, indexed, field, card: str,
                 for _ in range(max(FIXED_TIMED) - len(L))]
     for n in FIXED_TIMED:
         call = lambda f: f.hash_fixed(cols[:n])
-        before = dict(pc.LAUNCHES)
+        before = launched()
         call(pc)
-        perms = launched(pc, before)["permute_n"]
+        perms = launched(before)["permute_n"]
         p1 = vr.time_ms(lambda: call(plain), 1, 1)
         k1 = vr.time_ms(lambda: call(pc), 10, 2)
         k2 = vr.time_ms(lambda: call(pc), 10, 0)
@@ -2618,32 +2623,32 @@ def main() -> int:
                                              bench).items():
         errs[name] = max(errs[name], err)
     errs.update(phase_roofline_vs_plain(torch, vr, vc))
-    slice_out = phase_slice(torch, pc, field, indexed, reference_oracle)
-    seq_out = phase_sequential(torch, pc, field, indexed, merkle,
+    slice_out = phase_slice(torch, field, indexed, reference_oracle)
+    seq_out = phase_sequential(torch, field, indexed, merkle,
                                reference_oracle, slice_out,
                                torch.device("cuda"))
     dev = torch.device("cuda")
     with tempfile.TemporaryDirectory(prefix="imt_smoke_") as work_dir:
         t6 = time.perf_counter()
-        sparse_out = phase_sparse(torch, pc, field, indexed, sparse,
+        sparse_out = phase_sparse(torch, field, indexed, sparse,
                                   checkpoint, dev, work_dir)
-        witness_out = phase_witness(torch, pc, field, indexed, sparse, dev)
+        witness_out = phase_witness(torch, field, indexed, sparse, dev)
         print(f"phase 6: done in {time.perf_counter() - t6:.1f} s")
-        ops_out = phase_operations(torch, pc, field, indexed, sparse_out,
+        ops_out = phase_operations(torch, field, indexed, sparse_out,
                                    dev, work_dir)
-        nccl_out = phase_nccl_one(torch, pc, field, slice_out,
+        nccl_out = phase_nccl_one(torch, field, slice_out,
                                   torch.device("cuda", 0), work_dir)
-        shard_out = phase_sharded(torch, pc, field, sparse_out, work_dir,
+        shard_out = phase_sharded(torch, field, sparse_out, work_dir,
                                   torch.device("cuda", 0))
     del sparse_out["stream"], sparse_out["oks"]
     t9 = time.perf_counter()
-    phase_oracle(torch, pc, field, oracle, bench, dev)
+    phase_oracle(torch, hashing, field, oracle, bench, dev)
     phase_native_witness(field, indexed, oracle, dev)
     fixed_out = phase_hash_fixed(torch, pc, plain, hashing, field, dev)
     errs["permute_n"] = max(errs["permute_n"], fixed_out["max_abs_err"])
     phase_fuzz(tool("fuzz_compare_10m_torch"))
     print(f"phase 9: done in {time.perf_counter() - t9:.1f} s")
-    bench_out = phase_bench(torch, pc, bench, tool("parity_check_torch"),
+    bench_out = phase_bench(torch, bench, tool("parity_check_torch"),
                             card)
     numbers = phase_numbers(torch, pc, plain, vr, vc, indexed, field, card,
                             clock_mhz, census, slice_out, sparse_out,

@@ -11,9 +11,13 @@ Canonical limbs are ``int32[16, B]``; nodes are ``int32[8, B]``.
 
 Hash work is counted here, where each launch is chosen, with the tracer's
 counters (``utils/observability.py``): ``hash2.launches`` /
-``hash2.lanes`` (K2), ``hash3.launches`` / ``hash3.lanes`` (K3) and
-``perm.launches`` / ``perm.lanes`` (K1, the sponge of other arities), one
-launch a call on either device and its width in lanes.
+``hash2.lanes`` (K2), ``hash3.launches`` / ``hash3.lanes`` (K3),
+``perm.launches`` / ``perm.lanes`` (K1, the sponge of other arities) and
+the node conversions ``limbs_to_nodes.*`` / ``nodes_to_limbs.*``, one
+launch a call on either device and its width in lanes.  A hash of limbs
+is its conversions around a hash of nodes.  On the card each launch is
+also counted where it is made, as ``cuda.<entry point>``
+(``poseidon_cuda.py``), the sponge's conversions included.
 """
 
 from __future__ import annotations
@@ -40,14 +44,12 @@ def _counted(kind: str, launches: int, lanes: int) -> None:
 
 def hash2(a, b):
     """Batched 2-to-1 Poseidon hash, canonical limbs in and out."""
-    _counted("hash2", 1, a.shape[-1])
-    return _impl(a).hash2(a, b)
+    return dec_nodes(hash2_nodes(enc_nodes(a), enc_nodes(b)))
 
 
 def hash3(a, b, c):
     """Batched 3-to-1 Poseidon hash (indexed leaf), canonical limbs."""
-    _counted("hash3", 1, a.shape[-1])
-    return _impl(a).hash3(a, b, c)
+    return dec_nodes(hash3_leaf(a, b, c))
 
 
 def hash_fixed(cols):
@@ -73,11 +75,13 @@ def hash_fixed(cols):
 
 def enc_nodes(limbs):
     """Canonical limbs int32[16, B] -> nodes int32[8, B]."""
+    _counted("limbs_to_nodes", 1, limbs.shape[-1])
     return _impl(limbs).limbs_to_nodes(limbs)
 
 
 def dec_nodes(nodes):
     """Nodes int32[8, B] -> canonical limbs int32[16, B]."""
+    _counted("nodes_to_limbs", 1, nodes.shape[-1])
     return _impl(nodes).nodes_to_limbs(nodes)
 
 

@@ -129,12 +129,3 @@ def nodes_to_limbs(nodes: torch.Tensor) -> torch.Tensor:
     """Nodes int32[8, B] -> canonical limbs int32[16, B]."""
     return field.work_to_limbs(field.from_mont(field.nodes_to_work(nodes)))
 
-
-def hash2(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """H(a, b) on canonical limbs int32[16, B] -> canonical limbs."""
-    return nodes_to_limbs(hash2_nodes(limbs_to_nodes(a), limbs_to_nodes(b)))
-
-
-def hash3(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """H(a, b, c) on canonical limbs int32[16, B] -> canonical limbs."""
-    return nodes_to_limbs(hash3_leaf(a, b, c))

@@ -1,16 +1,16 @@
 """Wrappers of the hand-written CUDA Poseidon kernel (``csrc/poseidon_bn254.cu``).
 
 Counterpart of the public wrappers of ``imt_tpu/ops/poseidon_rns_pallas.py``
-(``permute_n``, ``hash2``, ``hash2_nodes``, ``hash3``, ``hash3_leaf``), plus
-the limb <-> node conversions and ``hash_fixed`` of any arity, a sponge of
-``permute_n`` launches.  Each wrapper takes CUDA tensors only, checks
-device, dtype, shape and contiguity, allocates its output with
-``torch.empty``, launches on the current stream without synchronising, and
-raises if the launch reports an error.  There is no fallback: a CPU tensor
-raises, and the plain version lives in ``poseidon.py``.
-
-``LAUNCHES`` counts kernel launches per entry point, one per launch, so a run
-can show that it went through the kernel.
+(``permute_n``, ``hash2_nodes``, ``hash3_leaf``; a hash of canonical limbs
+is ``hashing.hash2`` / ``hash3``), plus the limb <-> node conversions and
+``hash_fixed`` of any arity, a sponge of ``permute_n`` launches.  Each
+wrapper takes CUDA tensors only, checks device, dtype, shape and
+contiguity, allocates its output with ``torch.empty``, launches on the
+current stream without synchronising, and raises if the launch reports an
+error.  There is no fallback: a CPU tensor raises, and the plain version
+lives in ``poseidon.py``.  Each launch adds one to the tracer's counter
+``cuda.<entry point>``, so a run can show which kernels it reached;
+``hashing.py`` counts the hash work its dispatch chooses on either device.
 """
 
 from __future__ import annotations
@@ -21,19 +21,12 @@ from functools import lru_cache
 
 import torch
 
+from ..utils.observability import count
 from . import _build
 from .field import LIMBS, WORDS, add_mod_nodes
 
-LAUNCHES = {"permute_n": 0, "hash2_nodes": 0, "hash3_leaf": 0,
-            "limbs_to_nodes": 0, "nodes_to_limbs": 0}
-
 _init_lock = threading.Lock()
 _initialized_devices: set[int] = set()
-
-
-def reset_launch_counts() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 def _lib_for(device: torch.device) -> ctypes.CDLL:
@@ -84,7 +77,7 @@ def _launch(name: str, device: torch.device, fn, *args) -> None:
         err = fn(*args, ctypes.c_void_p(stream))
     if err:
         raise RuntimeError(f"{name}: CUDA launch error {err}")
-    LAUNCHES[name] += 1
+    count("cuda." + name)
 
 
 def _ptr(x: torch.Tensor) -> ctypes.c_void_p:
@@ -140,16 +133,6 @@ def nodes_to_limbs(nodes: torch.Tensor) -> torch.Tensor:
     _launch("nodes_to_limbs", nodes.device, lib.imt_nodes_to_limbs,
             _ptr(nodes), _ptr(out), ctypes.c_longlong(w))
     return out
-
-
-def hash2(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """H(a, b) on canonical limbs int32[16, B] -> canonical limbs."""
-    return nodes_to_limbs(hash2_nodes(limbs_to_nodes(a), limbs_to_nodes(b)))
-
-
-def hash3(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """H(a, b, c) on canonical limbs int32[16, B] -> canonical limbs."""
-    return nodes_to_limbs(hash3_leaf(a, b, c))
 
 
 @lru_cache(maxsize=None)

@@ -131,25 +131,18 @@ def _candidates(shard: Shard, queries: torch.Tensor):
     found) each, plus each query's position in the local sort (the queries'
     relative order there is the same on every rank: value, then batch
     index).  Only the live slots [off, count] can be participants, so the
-    sort takes those and the queries: the JAX package's 9-key sort becomes
-    the port's six 48-bit value keys (``indexed._value_keys``) with
-    is_query in the low bit of the last, as stable LSD passes."""
+    sort takes those and the queries (``indexed.sort_queries``, the
+    single-device witness's sort)."""
     dev, k = queries.device, queries.shape[1]
     live = max(0, min(shard.count + 1 - shard.off, shard.c))
     vals = shard.vals[:, :live]
     m = live + k
-    keys = indexed._value_keys(torch.cat([vals, queries], dim=1))
-    is_query = (torch.arange(m, device=dev) >= live).to(torch.int64)
-    keys[-1] = (keys[-1] << 1) | is_query
-    order = indexed._lex_order(keys[::-1])
+    order, qpos = indexed.sort_queries(vals, queries)
     participant = torch.cat([~field.is_zero(vals),
                              torch.zeros(k, dtype=torch.bool, device=dev)])
     if shard.off == 0 and live:
         participant[0] = True                   # the slot-0 sentinel
     part_s = participant[order]
-    inv = torch.empty_like(order)
-    inv[order] = torch.arange(m, device=dev)
-    qpos = inv[live:]
     out = []
     for p in indexed._true_neighbours(part_s, qpos):
         found = (p >= 0) & (p < m)
@@ -327,13 +320,13 @@ def _insert_one(shard: Shard, lower: list, new_vals: torch.Tensor, group,
     # recomputes a parent from its final children, which writes the value
     # that parent already has or must have
     cur = wr_loc.clamp(0, c - 1)
-    s, w, full = max(0, min(s0 - off, max(c - k, 0))), k, False
+    s, w = max(0, min(s0 - off, max(c - k, 0))), k
     for lvl in range(shard.l_loc):
         level, width = lower[lvl], c >> lvl
-        if full or 2 * k >= width // 2:
-            full = True
-            lower[lvl + 1] = hashing.hash2_nodes(*indexed._halves(level))
-            continue
+        if 2 * k >= width // 2:
+            # every level from here up is rebuilt whole
+            indexed.rebuild_levels(lower, lvl, shard.l_loc)
+            break
         # the slab window and the K rewrite paths in one launch
         wp = w // 2 + 1
         ps = max(min(s >> 1, width // 2 - wp), 0)
@@ -355,8 +348,7 @@ def _rebuild_top(shard: Shard, root: torch.Tensor, group) -> None:
     lv = shard.levels
     lv[shard.l_loc] = collectives.all_gather(root, group, dim=1,
                                              what="roots")
-    for lvl in range(shard.l_loc, shard.active_depth):
-        lv[lvl + 1] = hashing.hash2_nodes(*indexed._halves(lv[lvl]))
+    indexed.rebuild_levels(lv, shard.l_loc, shard.active_depth)
 
 
 def local_insert_batches(shard: Shard, new_vals: torch.Tensor, mesh, k: int,

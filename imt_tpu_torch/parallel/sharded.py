@@ -193,10 +193,7 @@ def _subtree(leaves: torch.Tensor, what: str) -> list:
 def _top(roots: torch.Tensor) -> torch.Tensor:
     """The replicated levels over `roots` [8, D], as columns [8, 2D - 1]:
     the roots first, the root last."""
-    top = [roots]
-    while top[-1].shape[1] > 1:
-        top.append(hashing.hash2_nodes(*indexed._halves(top[-1])))
-    return torch.cat(top, dim=1)
+    return torch.cat(_subtree(roots, "mesh"), dim=1)
 
 
 def _nodes(local: torch.Tensor):
@@ -385,9 +382,7 @@ class ShardedIndexedMerkleTree:
         with collectives.program("build"):
             roots = collectives.all_gather(own, self._group, dim=1)
         shard.levels.append(roots)
-        for lvl in range(shard.l_loc, ad):
-            shard.levels.append(hashing.hash2_nodes(
-                *indexed._halves(shard.levels[lvl])))
+        indexed.rebuild_levels(shard.levels, shard.l_loc, ad)
         self._shard, self._inner = shard, None
 
     def _regroup(self, m: int) -> list:
@@ -578,10 +573,7 @@ class ShardedIndexedMerkleTree:
             fields = local_plan.local_insert_batch_witness(
                 s, new_vals, self._mesh, k)
             w = indexed._finish_witness(fields, ad, self.tree_depth)
-            w.ok = IndexedMerkleTree._accepted(w.ok, as_numpy)
-            if as_numpy and indexed.debug_witness_enabled():
-                indexed.check_insert_witness(w)
-            return w
+            return IndexedMerkleTree._package_witness(w, as_numpy)
         ok = local_plan.local_insert_batch(s, new_vals, self._mesh, k)
         return IndexedMerkleTree._accepted(ok, as_numpy)
 

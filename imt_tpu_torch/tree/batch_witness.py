@@ -37,7 +37,7 @@ from collections import OrderedDict
 
 import torch
 
-from ..ops import field, hashing, poseidon_cuda
+from ..ops import field, hashing
 from ..utils.observability import count, held_counts, span
 from . import indexed
 
@@ -250,7 +250,6 @@ class _Graph:
         with torch.inference_mode(False):
             self.inputs = tuple(x.clone() for x in inputs)
         self.graph = torch.cuda.CUDAGraph()
-        launches = dict(poseidon_cuda.LAUNCHES)
         # recorded on a side stream that waits for the work queued so far:
         # torch.cuda.graph's synchronize and empty_cache would add tens of
         # ms to each capture
@@ -262,10 +261,6 @@ class _Graph:
                 self.outputs = _witness_walk(levels, *self.inputs)
             finally:
                 self.graph.capture_end()
-        self.launches = {name: n - launches[name] for name, n
-                         in poseidon_cuda.LAUNCHES.items()
-                         if n != launches[name]}
-        poseidon_cuda.LAUNCHES.update(launches)
         count("walk.graph_captures")
 
     def replay(self, inputs: tuple) -> tuple:
@@ -274,8 +269,6 @@ class _Graph:
         self.graph.replay()
         for name, n in self.counts.items():
             count(name, n)
-        for name, n in self.launches.items():
-            poseidon_cuda.LAUNCHES[name] += n
         count("walk.graph_replays")
         # the next replay overwrites the outputs: the caller gets its own
         return tuple(x.clone() for x in self.outputs)

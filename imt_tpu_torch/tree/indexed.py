@@ -3,10 +3,12 @@
 Counterpart of ``imt_tpu.tree.indexed`` for the dense tree: leaf semantics
 ``(val, next_val, next_idx)`` form a sorted linked list over the slots.
 
-* ``insert_batch`` resolves a whole batch with one lexicographic sort, one
-  3-to-1 rehash of the 2K dirty leaves and a level-by-level dirty-path
-  update (``_plan_batch`` then ``_update_paths_batch``); ``insert_batches``
-  chains B of them and rebuilds the levels above the crossover once.
+* ``insert_batches`` resolves each of B batches with one lexicographic
+  sort, one 3-to-1 rehash of the 2K dirty leaves and a level-by-level
+  dirty-path update up to the crossover (``_plan_batch`` then
+  ``_update_paths_batch``), and rebuilds the levels above the crossover
+  once, after the last (``rebuild_levels``); ``insert_batch`` is that
+  chain of one batch.
   ``insert_batch(witness=True)`` also returns every insert's
   ``InsertWitness`` (``batch_witness.py``).
 * ``insert`` / ``insert_seq`` are the sequential witness path: one step per
@@ -286,8 +288,9 @@ def _lex_order(keys) -> torch.Tensor:
 
 
 def _crossover(depth: int, d_width: int) -> int:
-    """First level index at which _update_paths_batch switches to full-level
-    rebuild for a dirty set of d_width entries."""
+    """First level index from which a dirty set of d_width entries rebuilds
+    the levels whole (``rebuild_levels``) instead of updating its paths
+    (``_update_paths_batch``)."""
     for d in range(depth):
         if d_width >= ((1 << depth) >> d) // 2:
             return d
@@ -298,14 +301,23 @@ def _halves(level: torch.Tensor):
     return level[:, 0::2].contiguous(), level[:, 1::2].contiguous()
 
 
+def rebuild_levels(levels: list, lo: int, hi: int) -> None:
+    """Levels lo + 1 .. hi of the list `levels` rebuilt in place from level
+    lo, each the hash2 of the halves of the one below (one launch a level);
+    the list ends at level hi after."""
+    del levels[lo + 1:]
+    for _ in range(lo, hi):
+        levels.append(hashing.hash2_nodes(*_halves(levels[-1])))
+
+
 def _update_paths_batch(levels: list, low_idx: torch.Tensor,
                         low_hash: torch.Tensor, slab_start: int,
-                        slab_hash: torch.Tensor, depth: int,
-                        cross: int) -> None:
+                        slab_hash: torch.Tensor, cross: int) -> None:
     """Batched dirty-path update (``imt_tpu`` ``_update_paths_batch``), in
-    place on `levels`.  The K new slots are contiguous from `slab_start`,
-    so their parents form a dense slab that halves per level; only the K low
-    leaves need gathered paths.  Levels from `cross` up are rebuilt whole.
+    place on `levels` 0 .. `cross`.  The K new slots are contiguous from
+    `slab_start`, so their parents form a dense slab that halves per level;
+    only the K low leaves need gathered paths.  The levels above `cross`
+    are left to the caller, which rebuilds them whole (``rebuild_levels``).
 
     low_idx: int64[K]; low_hash, slab_hash: nodes [8, K]."""
     k = low_hash.shape[1]
@@ -329,8 +341,6 @@ def _update_paths_batch(levels: list, low_idx: torch.Tensor,
         nxt[:, parent_idx] = hashing.hash2_nodes(
             level[:, parent_idx * 2], level[:, parent_idx * 2 + 1])
         cur_idx, s, w = parent_idx, ps, wp
-    for d in range(cross, depth):
-        levels[d + 1] = hashing.hash2_nodes(*_halves(levels[d]))
 
 
 def _next_true(mask: torch.Tensor) -> torch.Tensor:
@@ -505,8 +515,7 @@ def _zero_levels(depth: int, device) -> list:
 def _build_levels(leaves: torch.Tensor, depth: int) -> list:
     """Full tree over leaf nodes [8, 2^depth]: all levels, leaves first."""
     levels = [leaves]
-    for _ in range(depth):
-        levels.append(hashing.hash2_nodes(*_halves(levels[-1])))
+    rebuild_levels(levels, 0, depth)
     return levels
 
 
@@ -764,30 +773,38 @@ def _stack_witness(steps: list, depth: int, full_depth: int,
 # Batched non-inclusion witness
 # ---------------------------------------------------------------------------
 
+def sort_queries(vals: torch.Tensor, queries: torch.Tensor):
+    """One stable sort of the slots `vals` [16, M] and the queries
+    [16, K] by (value, is_query, entry): an existing entry equal to a
+    query sorts before it.  ``imt_tpu`` sorts with a 9-key lax.sort; here
+    the value is six 48-bit keys and is_query rides in the low bit of the
+    least significant one, as six stable LSD passes (``_lex_order``),
+    which gives the same order.  Returns (order int64[M + K], each query's
+    sorted position int64[K])."""
+    n, m = vals.shape[1], vals.shape[1] + queries.shape[1]
+    ar_m = torch.arange(m, device=vals.device)
+    keys = _value_keys(torch.cat([vals, queries], dim=1))
+    keys[-1] = (keys[-1] << 1) | (ar_m >= n).to(torch.int64)
+    order = _lex_order(keys[::-1])
+    inv = torch.empty_like(order)
+    inv[order] = ar_m
+    return order, inv[n:]
+
+
 def _non_inclusion(vals, nvs, nis, levels, queries, full_depth: int) -> dict:
     """Low leaf, proof and ok of each query [16, K] (``imt_tpu``
     ``_non_inclusion_witness_fn``, :674-750) over the slots of `vals` [16, M]
     (a prefix holding every list participant), with the root and proofs of
-    the depth-`full_depth` tree whose active prefix `levels` hold.  One
-    stable sort of slots and queries by (value, is_query, entry): an
-    existing entry equal to a query sorts before it, so that query's low
-    leaf fails val < q (ok False, the value is present).  ``imt_tpu``
-    sorts with a 9-key lax.sort; here the value is six 48-bit keys and
-    is_query rides in the low bit of the least significant one, as LSD
-    stable passes (_lex_order), which gives the same order."""
+    the depth-`full_depth` tree whose active prefix `levels` hold.  The
+    slots and queries sort together (``sort_queries``): an existing entry
+    equal to a query sorts before it, so that query's low leaf fails
+    val < q (ok False, the value is present)."""
     dev = vals.device
     n, k = vals.shape[1], queries.shape[1]
     m = n + k
-    keys = _value_keys(torch.cat([vals, queries], dim=1))
-    is_query = (torch.arange(m, device=dev) >= n).to(torch.int64)
-    keys[-1] = (keys[-1] << 1) | is_query
-    order = _lex_order(keys[::-1])
-
+    order, qpos = sort_queries(vals, queries)
     participant = torch.cat([_participants(vals),
                              torch.zeros(k, dtype=torch.bool, device=dev)])
-    inv = torch.empty_like(order)
-    inv[order] = torch.arange(m, device=dev)
-    qpos = inv[n:]
     # last participant strictly before each query's sorted position
     prv = _true_neighbours(participant[order], qpos)[0]
     found = prv >= 0
@@ -1013,9 +1030,11 @@ class IndexedMerkleTree:
         count("inserts.rejected", ok.size - accepted)
         return ok
 
-    def _package_witness(self, w: InsertWitness,
-                         as_numpy: bool) -> InsertWitness:
-        w.ok = self._accepted(w.ok, as_numpy)
+    @staticmethod
+    def _package_witness(w: InsertWitness, as_numpy: bool) -> InsertWitness:
+        """`w` with its ok as the caller asked (``_accepted``), re-verified
+        under the debug-witness check."""
+        w.ok = IndexedMerkleTree._accepted(w.ok, as_numpy)
         if as_numpy and _debug_witness:
             check_insert_witness(w)
         return w
@@ -1050,13 +1069,13 @@ class IndexedMerkleTree:
         (numpy or torch).  Returns the per-value acceptance mask bool[K];
         with witness=True, the InsertWitness of every insert instead
         (``batch_witness.py``), equal on its accepted lanes to what
-        ``insert_seq`` of the same values returns.  as_numpy=False keeps
-        the mask (and the witness) on the device."""
+        ``insert_seq`` of the same values returns.  Without a witness the
+        batch runs as a chain of one (``_insert_chain``).  as_numpy=False
+        keeps the mask (and the witness) on the device."""
         with span("insert_batch"):
             with span("stage"):
                 new_vals, k = _as_limb_batch(values, self.device)
             self._reserve(k)
-            ad = self.active_depth
             if witness:
                 from .batch_witness import insert_batch_witness
                 fields = insert_batch_witness(
@@ -1064,50 +1083,47 @@ class IndexedMerkleTree:
                     new_vals, self.count, self._walk_graphs)
                 self._advance(k)
                 with span("finish"):
-                    w = _finish_witness(fields, ad, self.tree_depth)
+                    w = _finish_witness(fields, self.active_depth,
+                                        self.tree_depth)
                 return self._package_witness(w, as_numpy)
-            low_idx, low_hash, slab_start, slab_hash, ok = _plan_batch(
-                self.vals, self.next_vals, self.next_idxs, new_vals,
-                self.count, self.vals.shape[1], k)
-            with span("paths"):
-                _update_paths_batch(self.levels, low_idx, low_hash,
-                                    slab_start, slab_hash, ad,
-                                    _crossover(ad, k))
-            self._advance(k)
-            return self._accepted(ok, as_numpy)
+            return self._accepted(self._insert_chain(new_vals[None])[0],
+                                  as_numpy)
 
     def insert_batches(self, values, as_numpy: bool = True):
         """B chained batches (``imt_tpu`` :1187, :613): packed limbs
         [B, 16, K] or B equal-length lists of python ints, state-identical
-        to B ``insert_batch`` calls.  Each batch updates the levels up to
-        the crossover (``_crossover``), from where ``_update_paths_batch``
-        rebuilds every level from the one below alone; those levels are
-        rebuilt once, after the last batch.  Returns the acceptance masks
+        to B ``insert_batch`` calls.  Returns the acceptance masks
         bool[B, K], on the device with as_numpy=False."""
         with span("insert_batches"):
             with span("stage"):
                 arr = _as_batch_stack(values, self.device)
-            b, _, k = arr.shape
-            self._reserve(b * k)
-            ad, n = self.active_depth, self.vals.shape[1]
-            cross = _crossover(ad, k)
-            oks = []
-            for new_vals in arr:
-                low_idx, low_hash, slab_start, slab_hash, ok = _plan_batch(
-                    self.vals, self.next_vals, self.next_idxs, new_vals,
-                    self.count, n, k)
-                with span("paths"):
-                    _update_paths_batch(self.levels, low_idx, low_hash,
-                                        slab_start, slab_hash, cross, cross)
-                self._advance(k)
-                oks.append(ok)
-            with span("rebuild"):
-                for d in range(cross, ad):
-                    self.levels[d + 1] = hashing.hash2_nodes(
-                        *_halves(self.levels[d]))
-            oks = torch.stack(oks) if oks else torch.zeros(
-                (0, k), dtype=torch.bool, device=self.device)
-            return self._accepted(oks, as_numpy)
+            self._reserve(arr.shape[0] * arr.shape[2])
+            return self._accepted(self._insert_chain(arr), as_numpy)
+
+    def _insert_chain(self, arr: torch.Tensor) -> torch.Tensor:
+        """The batched insert of the staged batches `arr` [B, 16, K], room
+        reserved: each batch is planned (``_plan_batch``) and updates the
+        levels up to the crossover (``_crossover``, the span ``paths``);
+        the levels above it, which a batch would rebuild whole, are rebuilt
+        once, after the last batch (the span ``rebuild``).  Returns ok
+        bool[B, K] on the device."""
+        _, _, k = arr.shape
+        ad, n = self.active_depth, self.vals.shape[1]
+        cross = _crossover(ad, k)
+        oks = []
+        for new_vals in arr:
+            low_idx, low_hash, slab_start, slab_hash, ok = _plan_batch(
+                self.vals, self.next_vals, self.next_idxs, new_vals,
+                self.count, n, k)
+            with span("paths"):
+                _update_paths_batch(self.levels, low_idx, low_hash,
+                                    slab_start, slab_hash, cross)
+            self._advance(k)
+            oks.append(ok)
+        with span("rebuild"):
+            rebuild_levels(self.levels, cross, ad)
+        return torch.stack(oks) if oks else torch.zeros(
+            (0, k), dtype=torch.bool, device=self.device)
 
     # -- serialization -------------------------------------------------------
 

@@ -37,14 +37,6 @@ class _Shapes:
         return a.new_zeros((field.WORDS, a.shape[1]))
 
     @staticmethod
-    def hash2(a, b):
-        return torch.zeros_like(a)
-
-    @staticmethod
-    def hash3(a, b, c):
-        return torch.zeros_like(a)
-
-    @staticmethod
     def hash_fixed(cols):
         return torch.zeros_like(cols[0])
 

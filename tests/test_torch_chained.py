@@ -89,6 +89,75 @@ def test_insert_batches_equals_a_loop_of_insert_batch(chained):
         assert torch.equal(x, y) and torch.equal(x, z)
 
 
+class _Mix:
+    """A cheap stand-in for Poseidon that mixes every input word into its
+    output, so that a node computed from other children differs: two
+    insert paths compared under it run the same hashes on the same
+    inputs."""
+
+    @staticmethod
+    def hash2_nodes(a, b):
+        return a * 31 + b * 17 + 7
+
+    @staticmethod
+    def hash3_leaf(a, b, c):
+        x = a * 3 + b * 5 + c * 7
+        return x[:8] * 11 + x[8:] * 13 + 1
+
+    @staticmethod
+    def nodes_to_limbs(x):
+        return torch.cat([x & 0xFFFF, (x >> 16) & 0xFFFF])
+
+
+def _raw_limbs(v: int) -> np.ndarray:
+    """The 16 limbs of v < 2^256 as given, not reduced mod p."""
+    return np.array([(v >> (16 * i)) & 0xFFFF for i in range(16)],
+                    dtype=np.int32)
+
+
+@pytest.mark.parametrize("sparse", [False, True], ids=["dense", "sparse"])
+def test_insert_batch_is_a_chain_of_one(monkeypatch, sparse):
+    """insert_batch(v) and insert_batches([v]) on two depth-8 trees, batch
+    after batch (duplicates within and across batches, zeros, values p,
+    p + 1 and 2^256 - 1 as raw limbs): the same masks, state and levels,
+    and the same hash2 and hash3 launches and lanes."""
+    from imt_tpu_torch.utils import observability
+    monkeypatch.setattr(indexed.hashing, "_impl", lambda x: _Mix)
+    p = field.P
+    batches = [field.ints_to_limbs([30, 10, 0, 10, 5, 50, 35, 2 ** 250]),
+               field.ints_to_limbs([7, 30, 0, 31, 7, 1, 2, 3])]
+    for col, v in ((0, p), (3, p + 1), (6, 2 ** 256 - 1)):
+        batches[1][:, col] = _raw_limbs(v)
+    if sparse:
+        make = lambda: SparseIndexedMerkleTree(8, initial_capacity_log2=2,
+                                               device=CPU)
+    else:
+        make = lambda: IndexedMerkleTree(8, device=CPU)
+    one, chain = make(), make()
+    names = ("hash2.launches", "hash2.lanes", "hash3.launches",
+             "hash3.lanes")
+
+    def counted(fn):
+        before = {n: observability.total(n) for n in names}
+        out = fn()
+        return out, {n: observability.total(n) - before[n] for n in names}
+
+    for b in batches:
+        ok, n_one = counted(lambda: one.insert_batch(b))
+        oks, n_chain = counted(lambda: chain.insert_batches(b[None]))
+        assert ok.shape == (8,) and np.array_equal(ok, oks[0])
+        assert n_one == n_chain and n_one["hash2.launches"] > 0
+        assert one.count == chain.count and \
+            one.active_depth == chain.active_depth
+        for x, y in zip(one.levels + [one.vals, one.next_vals,
+                                      one.next_idxs],
+                        chain.levels + [chain.vals, chain.next_vals,
+                                        chain.next_idxs]):
+            assert torch.equal(x, y)
+    assert ok.tolist() == [True, False, False, True, True, True, True, True]
+    assert one.active_depth == (5 if sparse else 8)
+
+
 def test_chained_hash_count_matches_imt_tpu(monkeypatch):
     """The hash lanes insert_batches dispatches (counted at
     ops/hashing.py, shape-only) against imt_tpu's formula."""

@@ -491,11 +491,19 @@ def test_phase7_resume_launches_and_group_semantics():
                       field.ints_to_limbs([0, 11, 7])])
     assert smoke.group_semantics(prior, group).tolist() == [
         [True, False, False], [False, True, False]]
-    from types import SimpleNamespace
-    pc = SimpleNamespace(LAUNCHES={"hash2_nodes": 3, "hash3_leaf": 0,
-                                   "nodes_to_limbs": 1})
-    assert smoke.launched(pc) == {"hash2_nodes": 3, "nodes_to_limbs": 1}
-    assert smoke.launched(pc, {"hash2_nodes": 3}) == {"nodes_to_limbs": 1}
+    from imt_tpu_torch.utils import observability
+    start = smoke.launched()
+    observability.count("cuda.hash2_nodes", 3)
+    observability.count("hash2.launches", 2)      # a dispatch, not a launch
+    observability.count("cuda.nodes_to_limbs", 1)
+    assert smoke.launched(start) == {
+        "hash3_leaf": 0, "hash2_nodes": 3, "nodes_to_limbs": 1,
+        "limbs_to_nodes": 0, "permute_n": 0}
+    assert smoke.launched(start, nonzero=True) == {"hash2_nodes": 3,
+                                                   "nodes_to_limbs": 1}
+    mid = smoke.launched()
+    observability.count("cuda.permute_n", 2)
+    assert smoke.launched(mid, nonzero=True) == {"permute_n": 2}
 
 
 def test_phase7_trace_kernels(tmp_path):

@@ -21,9 +21,10 @@ import torch
 
 from imt_tpu_torch import (FIELD_MODULUS, IndexedMerkleTree, MerkleTree,
                            SparseIndexedMerkleTree)
-from imt_tpu_torch.ops import (field, poseidon, poseidon_cuda, vpu_roofline,
-                               vpu_roofline_cuda)
+from imt_tpu_torch.ops import (field, hashing, poseidon, poseidon_cuda,
+                               vpu_roofline, vpu_roofline_cuda)
 from imt_tpu_torch.tree import indexed
+from imt_tpu_torch.utils import observability
 from _torch_inference import inference_mode  # noqa: F401
 import test_torch_port_faults as faults
 from test_torch_port_faults import one_rank_mesh  # noqa: F401
@@ -36,6 +37,16 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     return torch.device("cuda")
+
+
+def _launched(since: dict | None = None) -> dict:
+    """Each kernel entry point's launches on the card since `since` (an
+    earlier ``_launched()``), from the tracer's ``cuda.<name>`` counters,
+    which only a launch adds to."""
+    since = since or {}
+    return {k: observability.total("cuda." + k) - since.get(k, 0)
+            for k in ("permute_n", "hash2_nodes", "hash3_leaf",
+                      "limbs_to_nodes", "nodes_to_limbs")}
 
 
 def _limbs(seed: int, width: int, dev) -> torch.Tensor:
@@ -55,7 +66,8 @@ def test_kernel_equals_plain(cuda, width):
         (poseidon_cuda.nodes_to_limbs(na), poseidon.nodes_to_limbs(na)),
         (poseidon_cuda.hash2_nodes(na, nb), poseidon.hash2_nodes(na, nb)),
         (poseidon_cuda.hash3_leaf(a, b, c), poseidon.hash3_leaf(a, b, c)),
-        (poseidon_cuda.hash2(a, b), poseidon.hash2(a, b)),
+        (hashing.hash2(a, b),
+         poseidon.nodes_to_limbs(poseidon.hash2_nodes(na, nb))),
         (poseidon_cuda.permute_n(torch.stack([na, nb, na]), 3),
          poseidon.permute_n(torch.stack([na, nb, na]), 3)),
     ]
@@ -100,11 +112,11 @@ def test_insert_batch_on_cuda_equals_cpu(cuda):
                field.random_limbs(5, 64)]
     gpu = IndexedMerkleTree(8, device=cuda)
     cpu = IndexedMerkleTree(8, device="cpu")
-    poseidon_cuda.reset_launch_counts()
+    start = _launched()
     for b in batches:
         assert gpu.insert_batch(b).tolist() == cpu.insert_batch(b).tolist()
-    assert poseidon_cuda.LAUNCHES["hash3_leaf"] == len(batches)
-    assert poseidon_cuda.LAUNCHES["hash2_nodes"] > 0
+    assert _launched(start)["hash3_leaf"] == len(batches)
+    assert _launched(start)["hash2_nodes"] > 0
     for name in ("vals", "next_vals", "next_idxs"):
         assert torch.equal(getattr(gpu, name).cpu(), getattr(cpu, name)), name
     for d, (g, c) in enumerate(zip(gpu.levels, cpu.levels)):
@@ -178,9 +190,9 @@ def test_sequential_path_on_cuda_equals_cpu(cuda):
     cpu = IndexedMerkleTree(6, device="cpu")
     for t in (gpu, cpu):
         t.insert_batch([7, 70])
-    poseidon_cuda.reset_launch_counts()
+    start = _launched()
     wg, wc = _fields(gpu.insert_seq(vals)), _fields(cpu.insert_seq(vals))
-    assert poseidon_cuda.LAUNCHES["hash2_nodes"] >= 6 * len(vals)
+    assert _launched(start)["hash2_nodes"] >= 6 * len(vals)
     for k in wc:
         assert np.array_equal(np.asarray(wg[k]), np.asarray(wc[k])), k
     assert gpu.get_root_int() == cpu.get_root_int()
@@ -227,24 +239,24 @@ def test_numpy_arguments_verify_on_the_card(cuda):
     idx = [3, 12]
     proof, helpers = (x.cpu().numpy() for x in gpu.get_proofs(idx))
     root, leaf = gpu.get_root().cpu().numpy(), leaves[:, idx].numpy()
-    poseidon_cuda.reset_launch_counts()
+    start = _launched()
     assert gpu.verify_proofs(leaf, idx, root, proof).all()
-    assert poseidon_cuda.LAUNCHES["hash2_nodes"] == gpu.depth
+    assert _launched(start)["hash2_nodes"] == gpu.depth
     from imt_tpu_torch.ops import gates
     from imt_tpu_torch.tree import merkle
     got = gates.verify_merkle_proof(root, leaf, proof, helpers)
     assert got.device.type == "cuda" and got.tolist() == [True, True]
     assert merkle.verify_proofs(leaf, idx, root, proof).all()
-    assert poseidon_cuda.LAUNCHES["hash2_nodes"] == 3 * gpu.depth
+    assert _launched(start)["hash2_nodes"] == 3 * gpu.depth
     tree = IndexedMerkleTree(4)
     tree.insert_batch([9])
     p, _ = tree.get_proof(1)
     leaf1 = indexed.hashing.hash3(*(x[:, 1:2].contiguous() for x in (
         tree.vals, tree.next_vals, tree.next_idxs))).cpu().numpy()
-    poseidon_cuda.reset_launch_counts()
+    start = _launched()
     assert tree.verify_proof(leaf1, 1, tree.get_root().cpu().numpy(),
                              p.cpu().numpy())
-    assert poseidon_cuda.LAUNCHES["hash2_nodes"] == 4
+    assert _launched(start)["hash2_nodes"] == 4
 
 
 def test_witness_batch_on_cuda_equals_cpu(cuda):
@@ -252,15 +264,15 @@ def test_witness_batch_on_cuda_equals_cpu(cuda):
     on a dense depth-6 tree: every field of every lane, and the state."""
     gpu = IndexedMerkleTree(6, device=cuda)
     cpu = IndexedMerkleTree(6, device="cpu")
-    poseidon_cuda.reset_launch_counts()
+    start = _launched()
     for vals in ([30, 10, 20, 5, 50, 35, 2 ** 200],
                  [50, 50, 7, 0, 120, 119, 31, 6]):
         wg, wc = _fields(gpu.insert_batch(vals, witness=True)), \
             _fields(cpu.insert_batch(vals, witness=True))
         for k in wc:
             assert np.array_equal(np.asarray(wg[k]), np.asarray(wc[k])), k
-    assert poseidon_cuda.LAUNCHES["hash3_leaf"] == 2
-    assert poseidon_cuda.LAUNCHES["hash2_nodes"] == 2 * 6
+    assert _launched(start)["hash3_leaf"] == 2
+    assert _launched(start)["hash2_nodes"] == 2 * 6
     for g, c in zip(gpu.levels + [gpu.vals, gpu.next_vals, gpu.next_idxs],
                     cpu.levels + [cpu.vals, cpu.next_vals, cpu.next_idxs]):
         assert torch.equal(g.cpu(), c)
@@ -367,11 +379,11 @@ def test_witness_walk_graphs_equal_the_cpu_walk(cuda):
         """One batch on both; returns the card's witness and its walk
         counts (eager, captures, replays)."""
         c0 = {n: obs.total(n) for n in walk + hashes}
-        k2 = poseidon_cuda.LAUNCHES["hash2_nodes"]
+        k2 = _launched()
         wg = gpu.insert_batch(vals, witness=True, as_numpy=as_numpy)
         torch.cuda.synchronize()
         got = {n: obs.total(n) - c0[n] for n in walk + hashes}
-        k2 = poseidon_cuda.LAUNCHES["hash2_nodes"] - k2
+        k2 = _launched(k2)["hash2_nodes"]
         c1 = {n: obs.total(n) for n in hashes}
         wc = _fields(cpu.insert_batch(vals, witness=True))
         for n in hashes:
@@ -425,18 +437,17 @@ def test_hash_fixed_on_the_card_equals_plain(cuda, width):
     sponge, with p - 1 in every absorbed word of column 2: arity // 2 + 1
     K1 launches a call at every arity through poseidon_cuda.hash_fixed,
     which at arities 2 and 3 equals hash2 and hash3."""
-    from imt_tpu_torch.ops import hashing
     cols = [_limbs(10 + j, width, cuda) for j in range(8)]
     cols[2] = torch.as_tensor(np.repeat(
         field.int_to_limbs(FIELD_MODULUS - 1)[:, None], width, axis=1),
         device=cuda)
     for n in range(1, 9):
-        poseidon_cuda.reset_launch_counts()
+        start = _launched()
         got = poseidon_cuda.hash_fixed(cols[:n])
         torch.cuda.synchronize()
-        assert poseidon_cuda.LAUNCHES["permute_n"] == n // 2 + 1
-        assert poseidon_cuda.LAUNCHES["hash2_nodes"] == 0
-        assert poseidon_cuda.LAUNCHES["hash3_leaf"] == 0
+        assert _launched(start)["permute_n"] == n // 2 + 1
+        assert _launched(start)["hash2_nodes"] == 0
+        assert _launched(start)["hash3_leaf"] == 0
         want = poseidon.hash_fixed([c.cpu() for c in cols[:n]])
         assert torch.equal(got.cpu(), want), n
         assert torch.equal(hashing.hash_fixed(cols[:n]).cpu(), want), n
@@ -449,9 +460,9 @@ def test_native_oracle_equals_the_hash_kernels(cuda):
     a, b, c = (_limbs(s, 1000, cuda) for s in (4, 5, 6))
     u = [oracle.limbs_to_u64(x.cpu().numpy()) for x in (a, b, c)]
     assert np.array_equal(oracle.u64_to_limbs(oracle.hash2_u64(*u[:2])),
-                          poseidon_cuda.hash2(a, b).cpu().numpy())
+                          hashing.hash2(a, b).cpu().numpy())
     assert np.array_equal(oracle.u64_to_limbs(oracle.hash3_u64(*u)),
-                          poseidon_cuda.hash3(a, b, c).cpu().numpy())
+                          hashing.hash3(a, b, c).cpu().numpy())
 
 
 def test_sparse_proofs_beyond_the_prefix_on_the_card(cuda):

@@ -16,7 +16,7 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from imt_tpu_torch import IndexedMerkleTree
+from imt_tpu_torch import IndexedMerkleTree, SparseIndexedMerkleTree
 from imt_tpu_torch.ops import hashing
 from imt_tpu_torch.utils import observability
 from _torch_inference import inference_mode  # noqa: F401
@@ -100,6 +100,8 @@ def test_profiled_witness_batch_nests_and_shares_one_call(monkeypatch):
                               "hash2.launches": 3, "hash2.lanes": 12,
                               "walk.eager": 1, "plan.rank_scans": 2,
                               "plan.rank_queries": 4,
+                              "nodes_to_limbs.launches": 1,
+                              "nodes_to_limbs.lanes": 16,
                               "inserts.accepted": 2, "inserts.rejected": 0}
     ranges = {e.name: e for e in prof.events() if e.name.startswith("imt.")}
     assert set(ranges) == {"imt." + n for n in _names(sess)}
@@ -124,7 +126,8 @@ def test_one_session_a_profiled_stretch():
     _profiled(tree.get_root_int)
     second = _session()
     assert second["profiled"] and _names(second) == ["get_root", "wait"]
-    assert second["counts"] == {}
+    assert second["counts"] == {"nodes_to_limbs.launches": 1,
+                                "nodes_to_limbs.lanes": 1}
     assert second["spans"][0]["call"] != first["spans"][0]["call"]
 
 
@@ -144,6 +147,60 @@ def test_planner_counts_its_rank_scans():
     assert observability.total("plan.rank_scans") == 4
 
 
+@pytest.mark.parametrize("sparse", [False, True], ids=["dense", "sparse"])
+def test_root_read_counts_one_decode_after_the_spine(monkeypatch, sparse):
+    """get_root adds one nodes_to_limbs launch of one lane to the totals,
+    on a sparse tree after the hash2 launches of its spine (one a level
+    above the prefix), and nothing else."""
+    calls = []
+
+    class Seen(_torch_lanes._Shapes):
+        @staticmethod
+        def hash2_nodes(a, b):
+            calls.append("hash2")
+            return torch.zeros_like(a)
+
+        @staticmethod
+        def nodes_to_limbs(x):
+            calls.append("nodes_to_limbs")
+            return _torch_lanes._Shapes.nodes_to_limbs(x)
+    tree = SparseIndexedMerkleTree(8, initial_capacity_log2=3, device=CPU) \
+        if sparse else IndexedMerkleTree(3, device=CPU)
+    monkeypatch.setattr(hashing, "_impl", lambda x: Seen)
+    before = dict(observability.snapshot()["totals"])
+    assert tree.get_root().shape == (16, 1)
+    added = {n: v - before.get(n, 0)
+             for n, v in observability.snapshot()["totals"].items()
+             if v != before.get(n, 0)}
+    spine = 5 if sparse else 0
+    assert calls == ["hash2"] * spine + ["nodes_to_limbs"]
+    want = {"nodes_to_limbs.launches": 1, "nodes_to_limbs.lanes": 1}
+    if sparse:
+        want.update({"hash2.launches": 5, "hash2.lanes": 5,
+                     "spine.launches": 5, "spine.lanes": 5})
+    assert added == want
+
+
+@pytest.mark.parametrize("name, arity, want", [
+    ("hash2", 2, {"limbs_to_nodes": 2, "hash2": 1, "nodes_to_limbs": 1}),
+    ("hash3", 3, {"hash3": 1, "nodes_to_limbs": 1}),
+    ("hash_fixed", 5, {"perm": 3})])
+def test_limb_hashes_count_their_conversions(name, arity, want):
+    """A hash of canonical limbs counts the node conversions it dispatches
+    around its kernels, each launch at the call's width; the sponge of
+    other arities counts its permutations alone (on the card its
+    conversions are counted where they launch)."""
+    cols = [torch.zeros((16, 3), dtype=torch.int32)] * arity
+    before = dict(observability.snapshot()["totals"])
+    getattr(hashing, name)(*(cols if name != "hash_fixed" else [cols]))
+    added = {n: v - before.get(n, 0)
+             for n, v in observability.snapshot()["totals"].items()
+             if v != before.get(n, 0)}
+    assert added == {f"{kind}.{what}": n * (3 if what == "lanes" else 1)
+                     for kind, n in want.items()
+                     for what in ("launches", "lanes")}
+
+
 def test_enable_snapshot_reset():
     """enable() records without the profiler; a profiled stretch while
     enabled is a session of its own, and the spans after it start another;
@@ -155,7 +212,8 @@ def test_enable_snapshot_reset():
     sess = _session()
     assert not sess["profiled"] and _names(sess) == ["get_root", "wait"]
     assert sess["spans"][1]["parent"] == 0
-    assert sess["counts"] == {"queries": 3}
+    assert sess["counts"] == {"nodes_to_limbs.launches": 1,
+                              "nodes_to_limbs.lanes": 1, "queries": 3}
     _profiled(tree.get_root_int)
     assert _session()["profiled"] and _names(_session()) == ["get_root",
                                                              "wait"]

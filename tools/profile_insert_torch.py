@@ -8,8 +8,9 @@ on the card (the shape chip_smoke.py drives), runs one warm-up batch of
 K = 4096, then:
 
 1. times the two halves of the batched step (``_plan_batch``: sort, links,
-   scatters and the dirty-leaf hash3; ``_update_paths_batch``: the level
-   hashes) with a synchronise after each, on the host clock;
+   scatters and the dirty-leaf hash3; ``_update_paths_batch`` up to the
+   crossover and ``rebuild_levels`` above it: the level hashes) with a
+   synchronise after each, on the host clock;
 2. traces three whole ``insert_batch`` calls with ``torch.profiler`` and
    prints the device time by kernel, and the device's busy and idle share
    of the traced wall time;
@@ -80,14 +81,16 @@ def main() -> int:
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         indexed._update_paths_batch(tree.levels, low_idx, low_hash,
-                                    slab_start, slab_hash, depth, cross)
+                                    slab_start, slab_hash, cross)
+        indexed.rebuild_levels(tree.levels, cross, depth)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         tree.count += k
         plan_s.append(t1 - t0)
         paths_s.append(t2 - t1)
     print(f"depth {depth} K={k}: _plan_batch ms {[1e3 * s for s in plan_s]}; "
-          f"_update_paths_batch ms {[1e3 * s for s in paths_s]} [{card}]")
+          f"_update_paths_batch and rebuild_levels ms "
+          f"{[1e3 * s for s in paths_s]} [{card}]")
 
     # 2. whole insert_batch calls under the profiler
     batches = [batch() for _ in range(BATCHES)]
