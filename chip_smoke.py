@@ -187,7 +187,7 @@ W_DEPTH, W_K, W_BATCHES, W_SEQ = 16, 4096, 8, 256
 # leaves), its sharded path's on each of 4 ranks (hash3 over 2 * C5_K / 4
 # leaves, hash2 over the first slab window and the C5_K rewrite lanes), a
 # ragged width, the batched and witness paths' (2K, K), the sequential
-# one's (2)
+# one's (2); phase3_widths adds the hash kernels' crossover
 PHASE3_WIDTHS = (2 * C5_K, C5_K + C5_K // 2 + 1, RAGGED, C5_K, C5_K // 2,
                  2 * K, K, K // 2 + 1, 129, SEQ_WIDTH, 1)
 # phase 3, the resume's own widths (phase 7): its rebuild runs hash3 over
@@ -403,9 +403,9 @@ def k1_census(sass: str) -> dict:
 
 
 def sparse_census(sass: str) -> dict:
-    """Instructions per permutation of the sparse core, from hash2_kernel's
-    SASS.  The kernel runs two permutations, each a loop of 3 leading full
-    rounds, the last leading round, a loop of 57 partial rounds and a loop
+    """Instructions per permutation of the sparse core, from the SASS of
+    hash2_kernel<1> (one thread a lane).  The kernel runs two permutations,
+    each a loop of 3 leading full rounds, the last leading round, a loop of 57 partial rounds and a loop
     of 4 trailing full rounds: six loops without branches inside, in that
     order, the partial ones having the fewest wide multiplies.  Each loop
     body (an innermost backward branch's range) counts its trips, the code
@@ -417,7 +417,7 @@ def sparse_census(sass: str) -> dict:
     the source's count plus a lane's addressing, and the 32-bit products
     (IMAD: m of each reduction row, 8 per product) are all there.  Returns
     counts by opcode (halves are kept)."""
-    ins = kernel_instructions(sass, "hash2_kernel")
+    ins = kernel_instructions(sass, "hash2_kernelILi1E")
     loops = sorted((t, a) for a, t in _branches(ins) if t < a)
     if len(loops) != 6 or any(loops[i][1] >= loops[i + 1][0]
                               for i in range(5)):
@@ -557,8 +557,10 @@ def ptxas_report(log: str) -> dict:
     return {k: tuple(v) for k, v in out.items()}
 
 
-# kernels whose ptxas report must show no spills
-NO_SPILLS = ("hash2_kernel", "hash3_kernel", "permute_kernel")
+# kernels whose ptxas report must show no spills (the hash kernels at one
+# thread a lane and at a group of four)
+NO_SPILLS = ("hash2_kernel<1>", "hash2_kernel<4>", "hash3_kernel<1>",
+             "hash3_kernel<4>", "permute_kernel")
 
 
 def phase_build(_build, vr) -> dict:
@@ -621,20 +623,32 @@ def phase_build(_build, vr) -> dict:
 
 # -- phase 3 / 3b: kernels vs plain ------------------------------------------
 
+def phase3_widths(coop_lanes: int) -> tuple:
+    """PHASE3_WIDTHS with the hash kernels' crossover (the widest launch
+    that takes the cooperative kernels, ``poseidon_cuda.coop_lanes``) and
+    its two neighbours, so that phase 3 holds both kernels of each hash at
+    the edge between them; widest first."""
+    extra = {w for w in (coop_lanes - 1, coop_lanes, coop_lanes + 1)
+             if w > 0}
+    return tuple(sorted(set(PHASE3_WIDTHS) | extra, reverse=True))
+
+
 def phase_kernel_vs_plain(torch, pc, plain, field) -> dict:
     """Every Poseidon entry point against its plain version on CUDA tensors,
     with edge values in the first lanes: at the main paths' own widths
     (config 5's hash3 over its 2 * C5_K dirty leaves and hash2 over its
     C5_K low leaves, the depth-24 path's hash3 over 2K and hash2 over the
     K low leaves and the first slab level, the witness walk's 2K, the root
-    decode) and at a ragged width."""
+    decode), at a ragged width, and at the hash kernels' crossover and its
+    neighbours."""
+    dev = torch.device("cuda")
+    widths = phase3_widths(pc.coop_lanes(dev))
     rng = np.random.default_rng(SEED)
-    cols = seeded_limbs(rng, max(PHASE3_WIDTHS))
+    cols = seeded_limbs(rng, max(widths))
     for i, v in enumerate(edge_values(field)):
         cols[:, i] = int_limbs(v)
-    dev = torch.device("cuda")
     errs = {name: 0 for name in POSEIDON}
-    for width in PHASE3_WIDTHS:
+    for width in widths:
         L = [torch.as_tensor(np.roll(cols, s, axis=1)[:, :width], device=dev)
              for s in (0, 7, 101)]
         nodes = [plain.limbs_to_nodes(x) for x in L]   # valid nodes (< p)
@@ -662,7 +676,7 @@ def phase_kernel_vs_plain(torch, pc, plain, field) -> dict:
     for name, err in errs.items():
         chained = f" n_perms {K1_CHAINS}" if name == "permute_n" else ""
         print(f"phase 3: {name}{chained} widths "
-              f"{', '.join(map(str, PHASE3_WIDTHS))}: kernel vs plain "
+              f"{', '.join(map(str, widths))}: kernel vs plain "
               f"max_abs_err {err} (tolerance 0, bit-exact)")
 
     z = torch.zeros((16, 1), dtype=torch.int32, device=dev)

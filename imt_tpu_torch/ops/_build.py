@@ -34,6 +34,7 @@ LIBRARIES = {
     "poseidon": ("poseidon_bn254.cu", {
         "imt_init_constants": [_P, _I64],
         "imt_permute_n": [_P, _P, _I64, _I32, _P],
+        "imt_hash_lane_threads": [_I64],
         "imt_hash2_nodes": [_P, _P, _P, _I64, _P],
         "imt_hash3_leaf": [_P, _P, _P, _P, _I64, _P],
         "imt_limbs_to_nodes": [_P, _P, _I64, _P],

@@ -14,25 +14,28 @@
 // The plain torch version of every entry point is ops/poseidon.py; both
 // produce the same bits.
 //
-// What bounds it: 32-bit integer multiply-add throughput, not memory.  A
-// hash reads 64-96 B and writes 32 B per lane, against two permutations of
-// some 600 field multiplies each, and each multiply is 128 32x32->64-bit
-// multiply-adds and 8 32-bit products (8x32-bit CIOS).  At the main path's
-// widths (2 to 8192 lanes) a launch does not fill the card, so its time is
-// one thread's dependent instruction chain.
-// One thread per lane, the whole state in registers, the constants
-// (Montgomery form) in __constant__ memory, where every thread of a warp
-// reads the same word.  Two permutation cores, both on the optimized-spec
-// schedule of ops/poseidon_opt.py::permute_opt -- 4 full rounds (the last
-// with the folded MDS), 57 partial rounds of one S-box and a sparse matrix,
-// 4 full rounds:
+// What bounds it: 32-bit integer multiply-adds, not memory.  A hash reads
+// 64-96 B and writes 32 B per lane, against two permutations of some 600
+// field multiplies each, and each multiply is 128 32x32->64-bit
+// multiply-adds and 8 32-bit products (8x32-bit CIOS).  The state stays in
+// registers, the constants (Montgomery form) in __constant__ memory, where
+// every thread of a warp reads the same word.  Three permutation cores, all
+// on the optimized-spec schedule of ops/poseidon_opt.py::permute_opt -- 4
+// full rounds (the last with the folded MDS), 57 partial rounds of one
+// S-box and a sparse matrix, 4 full rounds:
 //
-// - permute_sparse (the hash kernels): 600 Montgomery products per
-//   permutation, each a CIOS product (mont_mul_cc) whose rows are eight
-//   independent 64-bit multiply-adds (IMAD.WIDE.U32) and one PTX carry
-//   chain of adds.  Each chain (a row of the product, a row of the
+// - permute_sparse (the hash kernels, one thread a lane): 600 Montgomery
+//   products per permutation, each a CIOS product (mont_mul_cc) whose rows
+//   are eight independent 64-bit multiply-adds (IMAD.WIDE.U32) and one PTX
+//   carry chain of adds.  Each chain (a row of the product, a row of the
 //   reduction, the final subtraction) is one asm statement: the carry flag
 //   does not survive from one asm statement to the next.
+// - permute_coop (the hash kernels, a group of kCoop = 4 threads a lane):
+//   the same products, each round's independent ones split between the
+//   group's threads, which exchange words by warp shuffles: a partial
+//   round is three products in a row where permute_sparse takes eight, a
+//   full round an S-box and one reduced dot (see the section).  Its four
+//   threads do about 1.5 times permute_sparse's work between them.
 // - permute_lazy (K1, imt_permute_n): the least-work arithmetic on the
 //   same schedule.  Each dot product (an MDS row; a partial round's
 //   m00 s + v1 x1 + v2 x2) sums its three products' rows before one
@@ -42,8 +45,16 @@
 //   and 4,800.  Every intermediate word is fully reduced, so a chain of
 //   permutations carries node-form states.
 //
-// Both cores compute the same permutation, so the outputs equal the plain
-// version bit for bit.
+// Which bounds each hash path: a narrow launch does not fill the card, so
+// its time is one lane's dependent instruction chain; the cooperative
+// kernels shorten that chain (0.47 against 0.75 ms a hash2 launch of 1 to
+// 4,096 lanes on an H100).  A wide launch is bound by the multiply-add
+// throughput, where the cooperative kernels' extra work loses: the
+// launchers take them up to kCoopLanesPerSM lanes an SM (lane_threads) and
+// one thread a lane above.
+//
+// The three cores compute the same permutation, so the outputs equal the
+// plain version bit for bit.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 // -Xcompiler -fPIC; a plain C interface, bound with ctypes (ops/_build.py).
@@ -810,6 +821,132 @@ IMT_HD void permute_lazy(Fr st[kT], const Consts& c) {
   for (int r = 0; r < kHalf; ++r) full_round_lazy(st, c.post[r], c.mds);
 }
 
+// ---- the cooperative core: kCoop threads a lane ----------------------------
+//
+// permute_sparse's schedule with each round's independent products split
+// between the kCoop threads of a group, which together carry one lane.
+// Every thread holds the whole state and runs the same instructions: its
+// role (0..kCoop - 1) only picks its operands (pick4, in registers), so a
+// warp never diverges and every constant is loaded warp-uniform.  After a
+// step the roles exchange the words the next step needs.
+//
+// A partial round, x = x0 + c0 and s = x^5, by role 0 | 1 | 2 | 3:
+//   1: x^2            | m00 x           | w1 x           | w2 x
+//   2: x^4 = (x^2)^2  | v1 x1           | v2 x2          | (v2 x2)
+//   3: (x^6)          | x^4 m00 x       | x^4 w1 x       | x^4 w2 x
+// then x0' = m00 s + (v1 x1 + v2 x2) on role 1, x1' = x1 + w1 s on role
+// 2, x2' = x2 + w2 s on role 3, and every role takes the three: three
+// products in a row where the sparse core takes eight.  A full round: role
+// j < 3 takes word j's S-box (pow5_sqr) and, after the exchange, row j of
+// the MDS matrix as one reduced dot (mont_dot3); role 3 repeats role 2.
+// Every value is fully reduced, so the result equals the sparse core's bit
+// for bit.
+
+constexpr int kCoop = 4;
+
+// r = k == 0 ? a : k == 1 ? b : k == 2 ? c : d, word by word
+IMT_HD void pick4(Fr& r, int k, const Fr& a, const Fr& b, const Fr& c,
+                  const Fr& d) {
+#pragma unroll
+  for (int i = 0; i < kWords; ++i) {
+    r.v[i] = k == 0 ? a.v[i] : k == 1 ? b.v[i] : k == 2 ? c.v[i] : d.v[i];
+  }
+}
+
+// The group's roles as one thread holds them (G): G::kN roles, the k-th
+// being role(k), each with its own copy of the state st[k]; from(v, src)
+// is role src's value of v.  On the host one thread holds all kCoop roles
+// (HostRoles) and runs each step for every role in turn; on the card each
+// thread holds its own (WarpRoles, kN = 1) and reads another's by a warp
+// shuffle.
+
+struct HostRoles {
+  static constexpr int kN = kCoop;
+  IMT_HD int role(int k) const { return k; }
+  IMT_HD Fr from(const Fr v[], int src) const { return v[src]; }
+};
+
+template <class G>
+IMT_HD void full_round_coop(const G& g, Fr st[][kT], const Fr rc[kT],
+                            const Fr mds[kT][kT]) {
+  constexpr int n = G::kN;
+  Fr s[n], t[n];
+#pragma unroll
+  for (int k = 0; k < n; ++k) {
+    const int q = g.role(k);
+    Fr x, a;
+    pick4(x, q, st[k][0], st[k][1], st[k][2], st[k][2]);
+    pick4(a, q, rc[0], rc[1], rc[2], rc[2]);
+    add_mod_cc(s[k], x, a);
+    pow5_sqr(s[k]);
+  }
+#pragma unroll
+  for (int k = 0; k < n; ++k) {
+    const int q = g.role(k);
+    Fr sv[kT], row[kT];
+#pragma unroll
+    for (int j = 0; j < kT; ++j) {
+      sv[j] = g.from(s, j);
+      pick4(row[j], q, mds[0][j], mds[1][j], mds[2][j], mds[2][j]);
+    }
+    mont_dot3(t[k], row, sv);
+  }
+#pragma unroll
+  for (int k = 0; k < n; ++k) {
+#pragma unroll
+    for (int i = 0; i < kT; ++i) st[k][i] = g.from(t, i);
+  }
+}
+
+// m: the round's (m00, v1, v2, w1, w2)
+template <class G>
+IMT_HD void partial_round_coop(const G& g, Fr st[][kT], const Fr& c0,
+                               const Fr m[kSparse]) {
+  constexpr int n = G::kN;
+  Fr p1[n], p2[n], y[n];
+#pragma unroll
+  for (int k = 0; k < n; ++k) {
+    const int q = g.role(k);
+    Fr x, a, b;
+    add_mod_cc(x, st[k][0], c0);
+    pick4(a, q, x, m[0], m[3], m[4]);
+    mont_mul_cc(p1[k], a, x);
+    pick4(a, q, p1[k], m[1], m[2], m[2]);
+    pick4(b, q, p1[k], st[k][1], st[k][2], st[k][2]);
+    mont_mul_cc(p2[k], a, b);
+  }
+#pragma unroll
+  for (int k = 0; k < n; ++k) {
+    const int q = g.role(k);
+    const Fr x4 = g.from(p2, 0), vx2 = g.from(p2, 2);
+    Fr p3, d, z;
+    mont_mul_cc(p3, x4, p1[k]);
+    add_mod_cc(d, p2[k], vx2);
+    pick4(z, q, d, d, st[k][1], st[k][2]);
+    add_mod_cc(y[k], p3, z);
+  }
+#pragma unroll
+  for (int k = 0; k < n; ++k) {
+#pragma unroll
+    for (int i = 0; i < kT; ++i) st[k][i] = g.from(y, i + 1);
+  }
+}
+
+// One permutation on permute_sparse's schedule, each round shared by the
+// group's roles.
+template <class G>
+IMT_HD void permute_coop(const G& g, Fr st[][kT], const Consts& c) {
+#pragma unroll 1
+  for (int r = 0; r < kHalf - 1; ++r) full_round_coop(g, st, c.pre[r], c.mds);
+  full_round_coop(g, st, c.pre[kHalf - 1], c.mds_pre);
+#pragma unroll 1
+  for (int r = 0; r < kRP; ++r) {
+    partial_round_coop(g, st, c.c0[r], c.sparse[r]);
+  }
+#pragma unroll 1
+  for (int r = 0; r < kHalf; ++r) full_round_coop(g, st, c.post[r], c.mds);
+}
+
 // ---- per-lane bodies (limb-major global layouts, B lanes) ------------------
 
 IMT_HD void load_node(Fr& x, const u32* src, long long B, long long lane) {
@@ -885,6 +1022,61 @@ IMT_HD void hash3_lane(const u32* a, const u32* b, const u32* c_in, u32* out,
   store_node(out, st[1], B, lane);
 }
 
+// hash2_lane by a group of kCoop threads; role 0 stores if `store`
+template <class G>
+IMT_HD void hash2_coop(const G& g, const u32* a, const u32* b, u32* out,
+                       long long B, long long lane, bool store,
+                       const Consts& c) {
+  Fr st[G::kN][kT];
+#pragma unroll
+  for (int k = 0; k < G::kN; ++k) {
+    st[k][0] = c.iv0;
+    load_node(st[k][1], a, B, lane);
+    load_node(st[k][2], b, B, lane);
+  }
+  permute_coop(g, st, c);
+#pragma unroll
+  for (int k = 0; k < G::kN; ++k) add_mod_cc(st[k][1], st[k][1], c.one);
+  permute_coop(g, st, c);
+#pragma unroll
+  for (int k = 0; k < G::kN; ++k) {
+    if (store && g.role(k) == 0) store_node(out, st[k][1], B, lane);
+  }
+}
+
+// hash3_lane by a group of kCoop threads: role j < 3 brings input j into
+// Montgomery form (role 3 repeats input 2); role 0 stores if `store`
+template <class G>
+IMT_HD void hash3_coop(const G& g, const u32* a, const u32* b,
+                       const u32* c_in, u32* out, long long B, long long lane,
+                       bool store, const Consts& c) {
+  Fr st[G::kN][kT], x[G::kN], xc[G::kN];
+#pragma unroll
+  for (int k = 0; k < G::kN; ++k) {
+    const int q = g.role(k);
+    load_limbs(x[k], q == 0 ? a : q == 1 ? b : c_in, B, lane);
+    to_mont(x[k], x[k]);
+  }
+#pragma unroll
+  for (int k = 0; k < G::kN; ++k) {
+    st[k][0] = c.iv0;
+    st[k][1] = g.from(x, 0);
+    st[k][2] = g.from(x, 1);
+    xc[k] = g.from(x, 2);
+  }
+  permute_coop(g, st, c);
+#pragma unroll
+  for (int k = 0; k < G::kN; ++k) {
+    add_mod_cc(st[k][1], st[k][1], xc[k]);
+    add_mod_cc(st[k][2], st[k][2], c.one);
+  }
+  permute_coop(g, st, c);
+#pragma unroll
+  for (int k = 0; k < G::kN; ++k) {
+    if (store && g.role(k) == 0) store_node(out, st[k][1], B, lane);
+  }
+}
+
 IMT_HD void limbs_to_nodes_lane(const u32* in, u32* out, long long B,
                                 long long lane) {
   Fr x;
@@ -917,6 +1109,14 @@ bool pack_consts(Consts& h, const u32* words, long long n_words) {
 namespace {
 
 constexpr int kBlock = 128;
+// The cooperative hash kernels' block, one warp of 8 lanes, and their
+// crossover: up to 96 lanes an SM, three such warps on each of its four
+// schedulers, a group per lane beats one thread per lane; a fourth warp a
+// scheduler makes it slower (on an H100: 0.735 against 0.874 ms a hash2
+// launch of 12,544 lanes, 0.92 against 0.87 at 12,800; CUDA events,
+// tools/hash_lane_threads_torch.py).
+constexpr int kCoopBlock = 32;
+constexpr long long kCoopLanesPerSM = 96;
 
 // K1's launch shape: threads per block, and the blocks per SM that
 // __launch_bounds__ asks registers to leave room for.  tools/
@@ -947,19 +1147,56 @@ permute_kernel(const u32* in, u32* out, long long B, int n_perms) {
   permute_lane(in, out, B, lane, n_perms, g_consts);
 }
 
-__global__ void __launch_bounds__(kBlock)
+// A group of kCoop neighbouring threads of one warp, role own: another
+// role's words come from that thread's registers.  Only the card runs it.
+struct WarpRoles {
+  static constexpr int kN = 1;
+  int own;
+  IMT_HD int role(int) const { return own; }
+  IMT_HD Fr from(const Fr v[], int src) const {
+    Fr x;
+#pragma unroll
+    for (int i = 0; i < kWords; ++i) {
+#ifdef __CUDA_ARCH__
+      x.v[i] = __shfl_sync(0xffffffffu, v[0].v[i], src, kCoop);
+#else
+      x.v[i] = v[0].v[i];
+#endif
+    }
+    return x;
+  }
+};
+
+// The hash kernels, one thread a lane (kLaneThreads 1) or a group of
+// kCoop (kLaneThreads kCoop).  A group's lanes past B repeat lane B - 1
+// and store nothing, so that every warp stays whole for its shuffles.
+template <int kLaneThreads>
+__global__ void __launch_bounds__(kLaneThreads == 1 ? kBlock : kCoopBlock)
 hash2_kernel(const u32* a, const u32* b, u32* out, long long B) {
-  const long long lane = lane_id();
-  if (lane >= B) return;
-  hash2_lane(a, b, out, B, lane, g_consts);
+  const long long t = lane_id();
+  if constexpr (kLaneThreads == 1) {
+    if (t >= B) return;
+    hash2_lane(a, b, out, B, t, g_consts);
+  } else {
+    const long long lane = t / kCoop;
+    hash2_coop(WarpRoles{(int)(t % kCoop)}, a, b, out, B,
+               lane < B ? lane : B - 1, lane < B, g_consts);
+  }
 }
 
-__global__ void __launch_bounds__(kBlock)
+template <int kLaneThreads>
+__global__ void __launch_bounds__(kLaneThreads == 1 ? kBlock : kCoopBlock)
 hash3_kernel(const u32* a, const u32* b, const u32* c, u32* out,
              long long B) {
-  const long long lane = lane_id();
-  if (lane >= B) return;
-  hash3_lane(a, b, c, out, B, lane, g_consts);
+  const long long t = lane_id();
+  if constexpr (kLaneThreads == 1) {
+    if (t >= B) return;
+    hash3_lane(a, b, c, out, B, t, g_consts);
+  } else {
+    const long long lane = t / kCoop;
+    hash3_coop(WarpRoles{(int)(t % kCoop)}, a, b, c, out, B,
+               lane < B ? lane : B - 1, lane < B, g_consts);
+  }
 }
 
 __global__ void __launch_bounds__(kBlock)
@@ -980,6 +1217,25 @@ unsigned grid_for(long long B) {
   return (unsigned)((B + kBlock - 1) / kBlock);
 }
 
+// SMs of each device, set by imt_init_constants
+constexpr int kMaxDevices = 64;
+int g_sms[kMaxDevices];
+
+// Threads a lane of a hash launch of width B on the current device: a
+// group of kCoop up to the crossover, one thread a lane above.  The one
+// place the choice is made (the launchers, imt_hash_lane_threads).
+int lane_threads(long long B) {
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices) {
+    return 1;
+  }
+  return B <= kCoopLanesPerSM * (long long)g_sms[dev] ? kCoop : 1;
+}
+
+unsigned coop_grid_for(long long B) {
+  return (unsigned)((B * kCoop + kCoopBlock - 1) / kCoopBlock);
+}
+
 }  // namespace
 
 extern "C" {
@@ -991,6 +1247,13 @@ extern "C" {
 int imt_init_constants(const u32* words, long long n_words) {
   Consts h;
   if (!pack_consts(h, words, n_words)) return -1;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess && dev >= 0 && dev < kMaxDevices) {
+    err = cudaDeviceGetAttribute(&g_sms[dev], cudaDevAttrMultiProcessorCount,
+                                 dev);
+  }
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaMemcpyToSymbol(g_consts, &h, sizeof(h));
 }
 
@@ -1004,10 +1267,18 @@ int imt_permute_n(const void* in, void* out, long long B, int n_perms,
   return (int)cudaGetLastError();
 }
 
+// Threads a lane that a hash launch of width B takes on the current
+// device (kCoop or 1): the launchers' own choice, for the tracer's count.
+int imt_hash_lane_threads(long long B) { return lane_threads(B); }
+
 int imt_hash2_nodes(const void* a, const void* b, void* out, long long B,
                     void* stream) {
-  if (B > 0) {
-    hash2_kernel<<<grid_for(B), kBlock, 0, (cudaStream_t)stream>>>(
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (B > 0 && lane_threads(B) == kCoop) {
+    hash2_kernel<kCoop><<<coop_grid_for(B), kCoopBlock, 0, s>>>(
+        (const u32*)a, (const u32*)b, (u32*)out, B);
+  } else if (B > 0) {
+    hash2_kernel<1><<<grid_for(B), kBlock, 0, s>>>(
         (const u32*)a, (const u32*)b, (u32*)out, B);
   }
   return (int)cudaGetLastError();
@@ -1015,8 +1286,12 @@ int imt_hash2_nodes(const void* a, const void* b, void* out, long long B,
 
 int imt_hash3_leaf(const void* a, const void* b, const void* c, void* out,
                    long long B, void* stream) {
-  if (B > 0) {
-    hash3_kernel<<<grid_for(B), kBlock, 0, (cudaStream_t)stream>>>(
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (B > 0 && lane_threads(B) == kCoop) {
+    hash3_kernel<kCoop><<<coop_grid_for(B), kCoopBlock, 0, s>>>(
+        (const u32*)a, (const u32*)b, (const u32*)c, (u32*)out, B);
+  } else if (B > 0) {
+    hash3_kernel<1><<<grid_for(B), kBlock, 0, s>>>(
         (const u32*)a, (const u32*)b, (const u32*)c, (u32*)out, B);
   }
   return (int)cudaGetLastError();

@@ -9,8 +9,11 @@ contiguity, allocates its output with ``torch.empty``, launches on the
 current stream without synchronising, and raises if the launch reports an
 error.  There is no fallback: a CPU tensor raises, and the plain version
 lives in ``poseidon.py``.  Each launch adds one to the tracer's counter
-``cuda.<entry point>``, so a run can show which kernels it reached;
-``hashing.py`` counts the hash work its dispatch chooses on either device.
+``cuda.<entry point>``, so a run can show which kernels it reached, and a
+hash launch that the library runs on its cooperative kernel (several
+threads a lane, at widths up to ``coop_lanes``) one to
+``cuda.<entry point>.coop``; ``hashing.py`` counts the hash work its
+dispatch chooses on either device.
 """
 
 from __future__ import annotations
@@ -71,13 +74,37 @@ def _check(name: str, tensors, lead: tuple) -> int:
     return b
 
 
-def _launch(name: str, device: torch.device, fn, *args) -> None:
+def _launch(name: str, device: torch.device, fn, *args,
+            hash_lanes: int | None = None) -> None:
+    """Launch `fn` on the current stream of `device` and count it; a hash
+    launch passes its width as `hash_lanes`, and the library says which
+    kernel that width took."""
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(*args, ctypes.c_void_p(stream))
+        coop = hash_lanes is not None and _build.load(
+            "poseidon").imt_hash_lane_threads(hash_lanes) > 1
     if err:
         raise RuntimeError(f"{name}: CUDA launch error {err}")
     count("cuda." + name)
+    if coop:
+        count(f"cuda.{name}.coop")
+
+
+def coop_lanes(device: torch.device) -> int:
+    """The widest hash launch that takes the cooperative kernels on
+    `device`, found by bisection of the library's own choice (a width
+    takes them iff it is at most this)."""
+    lib = _lib_for(device)
+    lo, hi = 0, 1 << 40
+    with torch.cuda.device(device):
+        while lo < hi:
+            mid = (lo + hi + 1) // 2
+            if lib.imt_hash_lane_threads(mid) > 1:
+                lo = mid
+            else:
+                hi = mid - 1
+    return lo
 
 
 def _ptr(x: torch.Tensor) -> ctypes.c_void_p:
@@ -100,7 +127,7 @@ def hash2_nodes(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     lib = _lib_for(a.device)
     out = torch.empty_like(a)
     _launch("hash2_nodes", a.device, lib.imt_hash2_nodes, _ptr(a), _ptr(b),
-            _ptr(out), ctypes.c_longlong(w))
+            _ptr(out), ctypes.c_longlong(w), hash_lanes=w)
     return out
 
 
@@ -111,7 +138,7 @@ def hash3_leaf(a: torch.Tensor, b: torch.Tensor,
     lib = _lib_for(a.device)
     out = torch.empty((WORDS, w), dtype=torch.int32, device=a.device)
     _launch("hash3_leaf", a.device, lib.imt_hash3_leaf, _ptr(a), _ptr(b),
-            _ptr(c), _ptr(out), ctypes.c_longlong(w))
+            _ptr(c), _ptr(out), ctypes.c_longlong(w), hash_lanes=w)
     return out
 
 

@@ -139,14 +139,14 @@ def test_k1_census_counts_the_perms_loop():
         smoke.k1_census(_fake_k1_sass(full, dict(partial, IMAD=47), {}))
     with pytest.raises(AssertionError, match="expected 4 loops"):
         smoke.k1_census(_fake_hash2_sass(full, partial, straight).replace(
-            "hash2_kernel", "permute_kernel"))
+            "hash2_kernelILi1EE", "permute_kernelE"))
 
 
 def _fake_hash2_sass(full: dict, partial: dict, straight: dict) -> str:
-    """A hash2_kernel listing shaped like the built one: straight code, then
-    two permutations of a full-round loop, a full round, a partial-round
-    loop and a full-round loop."""
-    lines = ["\t\tFunction : _ZN4anon12hash2_kernelEPKjS1_Pjx"]
+    """A hash2_kernel<1> listing shaped like the built one: straight code,
+    then two permutations of a full-round loop, a full round, a
+    partial-round loop and a full-round loop."""
+    lines = ["\t\tFunction : _ZN4anon12hash2_kernelILi1EEEvPKjS2_Pjx"]
     addr = [0]
 
     def emit(op, args="RZ"):
@@ -197,7 +197,11 @@ def test_sparse_census_counts_both_permutations():
             full, dict(partial, **{"IMAD.WIDE.U32": 8 * 128 + 1}), {}))
     with pytest.raises(AssertionError, match="6 disjoint loops"):
         smoke.sparse_census(_fake_k1_sass(full, partial, {}).replace(
-            "permute_kernel", "hash2_kernel"))
+            "permute_kernelE", "hash2_kernelILi1EE"))
+    # the cooperative kernel's listing is not the sparse core's
+    with pytest.raises(ValueError):
+        smoke.sparse_census(_fake_hash2_sass(full, partial, straight).replace(
+            "ILi1EE", "ILi4EE"))
 
 
 # instructions of one application of each probe body, as the built loop
@@ -338,7 +342,7 @@ def test_ptxas_report_per_kernel():
     log = "\n".join([
         "ptxas info    : 18592 bytes gmem",
         "ptxas info    : Function properties for "
-        + mangled.format("12hash2_kernel"),
+        + mangled.format("12hash2_kernelILi4EE"),
         "    48 bytes stack frame, 48 bytes spill stores, 56 bytes spill loads",
         "ptxas info    : Used 254 registers, used 0 barriers",
         "ptxas info    : Function properties for "
@@ -346,7 +350,7 @@ def test_ptxas_report_per_kernel():
         "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
         "ptxas info    : Used 110 registers, used 0 barriers"])
     assert _smoke_module().ptxas_report(log) == {
-        "hash2_kernel": (254, 48, 56), "permute_kernel": (110, 0, 0)}
+        "hash2_kernel<4>": (254, 48, 56), "permute_kernel": (110, 0, 0)}
     probe = "\n".join([
         "ptxas info    : Function properties for _ZN12_GLOBAL__N_115"
         "roofline_kernelILi7EjEEvPKT0_PS1_xxiS1_S1_",
@@ -551,6 +555,16 @@ def test_phase9_witness_batch_against_the_native_tree():
     w.ok[rejected] = True
     with pytest.raises(AssertionError, match="ok differs"):
         smoke.check_native_witness(field, w, wits, 4)
+
+
+def test_phase3_widths_add_the_crossover():
+    """Phase 3 holds the hash kernels at their crossover and its two
+    neighbours, beside the main paths' widths, widest first."""
+    smoke = _smoke_module()
+    got = smoke.phase3_widths(12672)
+    assert set(got) == set(smoke.PHASE3_WIDTHS) | {12671, 12672, 12673}
+    assert list(got) == sorted(got, reverse=True)
+    assert min(smoke.phase3_widths(0)) == 1
 
 
 def test_phase3_plain_in_chunks_equals_one_call():

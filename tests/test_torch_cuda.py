@@ -15,6 +15,8 @@ the suite's conftest:
 Tolerance: exact (the kernel and the plain path compute the same bits).
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -74,6 +76,58 @@ def test_kernel_equals_plain(cuda, width):
     torch.cuda.synchronize()
     for i, (got, want) in enumerate(pairs):
         assert torch.equal(got, want), i
+
+
+def _coop_widths(dev) -> list:
+    c = poseidon_cuda.coop_lanes(dev)
+    return [1, 2, 31, 33, 2048, 4096, c - 1, c, c + 1, 2 * c]
+
+
+def test_hash_kernels_both_paths_equal_plain(cuda):
+    """hash2 and hash3 at widths on both sides of the crossover (the
+    cooperative kernels at most ``coop_lanes``, one thread a lane above)
+    bit for bit against the plain version, with 0, p - 1 and 2^256 - 1
+    (hash3's limbs; reduced mod p as hash2's nodes) among the lanes; a
+    launch writes its output's 8 x width words and nothing past them."""
+    for width in _coop_widths(cuda):
+        a, b, c = (_limbs(s, width, cuda) for s in (21, 22, 23))
+        for x in (a, b, c):
+            x[:, width // 2] = 0
+        na, nb = poseidon.limbs_to_nodes(a), poseidon.limbs_to_nodes(b)
+        want = poseidon.hash2_nodes(na, nb)
+        assert torch.equal(poseidon_cuda.hash2_nodes(na, nb), want), width
+        assert torch.equal(poseidon_cuda.hash3_leaf(a, b, c),
+                           poseidon.hash3_leaf(a, b, c)), width
+        out = torch.full((8 * width + 64,), -1, dtype=torch.int32,
+                         device=cuda)
+        lib = poseidon_cuda._lib_for(cuda)
+        assert lib.imt_hash2_nodes(
+            ctypes.c_void_p(na.data_ptr()), ctypes.c_void_p(nb.data_ptr()),
+            ctypes.c_void_p(out.data_ptr()), width,
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)) == 0
+        assert torch.equal(out[:8 * width].view(8, width), want), width
+        assert bool((out[8 * width:] == -1).all()), width
+
+
+def test_coop_launches_are_counted(cuda):
+    """``cuda.<entry point>.coop`` counts the hash launches that take the
+    cooperative kernels: every one at or below the crossover, none above;
+    ``cuda.<entry point>`` counts them all."""
+    c = poseidon_cuda.coop_lanes(cuda)
+    assert c == 96 * torch.cuda.get_device_properties(
+        cuda).multi_processor_count
+    names = [f"cuda.{n}{s}" for n in ("hash2_nodes", "hash3_leaf")
+             for s in ("", ".coop")]
+    for width, coop in ((1, 1), (c, 1), (c + 1, 0)):
+        limbs = _limbs(24, width, cuda)
+        nodes = poseidon.limbs_to_nodes(limbs)
+        start = {n: observability.total(n) for n in names}
+        poseidon_cuda.hash2_nodes(nodes, nodes)
+        poseidon_cuda.hash3_leaf(limbs, limbs, limbs)
+        got = {n: observability.total(n) - start[n] for n in names}
+        assert got == {"cuda.hash2_nodes": 1, "cuda.hash2_nodes.coop": coop,
+                       "cuda.hash3_leaf": 1, "cuda.hash3_leaf.coop": coop}, \
+            width
 
 
 def test_constant_tables_on_the_card(cuda):
@@ -429,6 +483,38 @@ def test_witness_walk_graphs_equal_the_cpu_walk(cuda):
         counts.append(step(sg, sc, batch(2))[1])
     assert sg.active_depth == sc.active_depth == 4
     assert counts == [eager, capture, replay, eager, capture]
+
+
+def test_walk_graph_replay_on_the_coop_path_equals_the_eager_walk(cuda):
+    """Three witness batches of K = 16 on a depth-12 tree whose walk runs
+    eagerly, then is captured and replayed as a CUDA graph, against the
+    same batches on a twin whose walk runs eagerly each time (its graphs
+    reset before every batch): every field and level equal; each walk's
+    hash2 launches (2K = 32 lanes, below the crossover) take the
+    cooperative kernel, the replays' counted from their capture."""
+    from imt_tpu_torch.tree.batch_witness import WalkGraphs
+    names = ("cuda.hash2_nodes", "cuda.hash2_nodes.coop", "walk.eager",
+             "walk.graph_replays")
+    rng = np.random.default_rng(16)
+    graphed = IndexedMerkleTree(12, device=cuda)
+    eager = IndexedMerkleTree(12, device=cuda)
+    for i in range(3):
+        vals = [int(v) for v in rng.integers(1, 1 << 62, 16)]
+        vals[3] = 0
+        start = {n: observability.total(n) for n in names}
+        wg = _fields(graphed.insert_batch(vals, witness=True))
+        torch.cuda.synchronize()
+        got = {n: observability.total(n) - start[n] for n in names}
+        eager._walk_graphs = WalkGraphs()
+        we = _fields(eager.insert_batch(vals, witness=True))
+        assert got["walk.eager"] == (i == 0)
+        assert got["walk.graph_replays"] == (i > 0)
+        assert got["cuda.hash2_nodes.coop"] == got["cuda.hash2_nodes"] > 0
+        for k in we:
+            assert np.array_equal(np.asarray(wg[k]), np.asarray(we[k])), k
+        for g, e in zip(graphed.levels, eager.levels):
+            assert torch.equal(g, e)
+    assert graphed.get_root_int() == eager.get_root_int()
 
 
 @pytest.mark.parametrize("width", [1, 2, 1000])

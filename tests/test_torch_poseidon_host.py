@@ -3,7 +3,9 @@
 Everything in ``csrc/poseidon_bn254.cu`` outside ``#ifdef __CUDACC__`` is
 plain C++: a small harness includes the source, ``g++`` builds it into a
 shared library, and ``ctypes`` runs the per-lane bodies of the hash kernels
-(``hash2_lane``, ``hash3_lane``: the sparse core), K1's body
+(``hash2_lane``, ``hash3_lane``: the sparse core; ``hash2_coop``,
+``hash3_coop``: the cooperative core, its four roles run in turn on one
+thread with the warp shuffles as copies), K1's body
 (``permute_lane``, n_perms 1, 2 and 3) and the limb <-> node conversions
 on numpy-seeded lanes, with the edge values 0, p - 1, p and 2^256 - 1
 among them (and the node words 0 and p - 1).  The results must equal the
@@ -60,17 +62,45 @@ void h_nodes_to_limbs(const u32* in, u32* out, long long B) {
   for (long long i = 0; i < B; ++i) nodes_to_limbs_lane(in, out, B, i);
 }
 
-// n chained permutations of states [3, 8, B]: K1's body (permute_lane, as
-// permute_kernel runs it) if k1, else the sparse core chained n times
-void h_permute(const u32* in, u32* out, long long B, int n, int k1) {
+// the cooperative bodies, every role of a group in turn on this thread
+void h_hash2_coop(const u32* a, const u32* b, u32* out, long long B) {
   for (long long i = 0; i < B; ++i) {
-    if (k1) {
+    hash2_coop(HostRoles{}, a, b, out, B, i, true, g_host);
+  }
+}
+
+void h_hash3_coop(const u32* a, const u32* b, const u32* c, u32* out,
+                  long long B) {
+  for (long long i = 0; i < B; ++i) {
+    hash3_coop(HostRoles{}, a, b, c, out, B, i, true, g_host);
+  }
+}
+
+// n chained permutations of states [3, 8, B]: K1's body (permute_lane, as
+// permute_kernel runs it) if core is 1, the sparse core chained n times if
+// 0, the cooperative core (role 0's state; every role's must agree) if 2
+void h_permute(const u32* in, u32* out, long long B, int n, int core) {
+  for (long long i = 0; i < B; ++i) {
+    if (core == 1) {
       permute_lane(in, out, B, i, n, g_host);
       continue;
     }
-    Fr st[kT];
+    Fr st[kT], sc[kCoop][kT];
     for (int j = 0; j < kT; ++j) load_node(st[j], in + j * kWords * B, B, i);
-    for (int k = 0; k < n; ++k) permute_sparse(st, g_host);
+    for (int k = 0; k < n; ++k) {
+      if (core == 0) {
+        permute_sparse(st, g_host);
+        continue;
+      }
+      for (int q = 0; q < kCoop; ++q) {
+        for (int j = 0; j < kT; ++j) sc[q][j] = st[j];
+      }
+      permute_coop(HostRoles{}, sc, g_host);
+      for (int q = 1; q < kCoop; ++q) {
+        if (std::memcmp(sc[q], sc[0], sizeof(sc[0])) != 0) return;
+      }
+      for (int j = 0; j < kT; ++j) st[j] = sc[0][j];
+    }
     for (int j = 0; j < kT; ++j) store_node(out + j * kWords * B, st[j], B, i);
   }
 }
@@ -94,8 +124,8 @@ def build_harness(directory):
     h = ctypes.CDLL(str(so))
     P, I64 = ctypes.c_void_p, ctypes.c_longlong
     h.h_init.argtypes = [P, I64]
-    h.h_hash2.argtypes = [P, P, P, I64]
-    h.h_hash3.argtypes = [P, P, P, P, I64]
+    h.h_hash2.argtypes = h.h_hash2_coop.argtypes = [P, P, P, I64]
+    h.h_hash3.argtypes = h.h_hash3_coop.argtypes = [P, P, P, P, I64]
     h.h_permute.argtypes = [P, P, I64, ctypes.c_int, ctypes.c_int]
     h.h_limbs_to_nodes.argtypes = h.h_nodes_to_limbs.argtypes = [P, P, I64]
     words = kernel_words()
@@ -145,6 +175,20 @@ def test_hash3_lane_equals_plain(lib):
     assert torch.equal(got, poseidon.hash3_leaf(a, b, c))
 
 
+def test_hash2_coop_equals_plain(lib):
+    """The cooperative hash2 body, its kCoop roles run in turn with the
+    exchanges as copies."""
+    a, b = (poseidon.limbs_to_nodes(_limbs(s)) for s in (1, 2))
+    got = _call(lib.h_hash2_coop, (8, LANES), a, b)
+    assert torch.equal(got, poseidon.hash2_nodes(a, b))
+
+
+def test_hash3_coop_equals_plain(lib):
+    a, b, c = (_limbs(s) for s in (3, 4, 5))
+    got = _call(lib.h_hash3_coop, (8, LANES), a, b, c)
+    assert torch.equal(got, poseidon.hash3_leaf(a, b, c))
+
+
 def _states() -> torch.Tensor:
     """Node states int32[3, 8, LANES]: seeded values, edge values among
     them, and the node words 0 and p - 1 in their own lanes."""
@@ -159,14 +203,16 @@ def _states() -> torch.Tensor:
 
 
 @pytest.mark.parametrize("core,n", [("sparse", 2), ("k1", 1), ("k1", 2),
-                                    ("k1", 3)],
-                         ids=["sparse", "k1-1", "k1-2", "k1-3"])
+                                    ("k1", 3), ("coop", 2)],
+                         ids=["sparse", "k1-1", "k1-2", "k1-3", "coop"])
 def test_permutation_cores_equal_plain(lib, core, n):
-    """The hash kernels' sparse core and K1's kernel body (n_perms 1, 2
-    and 3) against the plain permute_n."""
+    """The hash kernels' sparse and cooperative cores (every role's state
+    equal after each permutation) and K1's kernel body (n_perms 1, 2 and 3)
+    against the plain permute_n."""
     st = _states()
     got = k1(lib, st, n) if core == "k1" else _call(
-        lambda i, o, w: lib.h_permute(i, o, w, n, 0), (3, 8, LANES), st)
+        lambda i, o, w: lib.h_permute(i, o, w, n, 2 if core == "coop" else 0),
+        (3, 8, LANES), st)
     assert torch.equal(got, poseidon.permute_n(st, n))
 
 
