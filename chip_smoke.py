@@ -89,10 +89,11 @@ raises and the exit code is not 0:
    two witness batches of K = 4096 at depth 16 (config 3w's) on the card
    against the C++ tree's inserts one by one: ok on every lane, every
    witness field on the accepted lanes, the roots.  9c: hashing.hash_fixed
-   on the card at arities 1-8, widths 65537 (edge values, p - 1 columns)
-   and 2, arity 4 also at 2^17, each call's K1 launches n // 2 + 1,
-   against the plain version bit for bit; arities 2 and 3 through K1 equal
-   hash2 and hash3.  9d: tools/fuzz_compare_10m_torch.py's comparator
+   on the card at arities 1-8, widths 65537 (edge values, p - 1 columns),
+   2 and 4096 (the public data tree's leaf hash at K = 2048), arity 4 also
+   at 2^17 and also as nodes (``hash_fixed_nodes``), each call's K1
+   launches n // 2 + 1, against the plain version bit for bit; arities 2
+   and 3 through K1 equal hash2 and hash3.  9d: tools/fuzz_compare_10m_torch.py's comparator
    fuzz, 16 rounds of 2^16 pairs on the card;
 10. the bench (``bench_torch.py``, its launches counted as the "bench"
    path): ``tools/parity_check_torch.py``'s three checks on the card, the
@@ -215,13 +216,15 @@ HASH2_SYMBOL = "hash2_kernel"
 # (bench.py:486-505, :570: 4096 pairs, 32 iterations); witness batches
 # against the C++ tree at config 3w's depth and K (W_DEPTH, W_K), two
 # batches, the second holding duplicates of the first; hash_fixed's
-# arities and widths (the ragged one and a sequential insert's), arity 4
-# also at FILL_WIDTH, arities 4 and 8 timed in phase 5; the fuzz's rounds
-# of 2^16 pairs
+# arities and widths (the ragged one, a sequential insert's and the public
+# data tree's leaf hash over its 2K dirty leaves at the benchmark's K =
+# 2048), arity 4 also at FILL_WIDTH and also nodes out (that leaf hash,
+# ``hash_fixed_nodes``), arities 4 and 8 timed in phase 5; the fuzz's
+# rounds of 2^16 pairs
 ORACLE_BATCH, ORACLE_ITERS = 4096, 32
 NATIVE_BATCHES = 2
 FIXED_ARITIES = tuple(range(1, 9))
-FIXED_WIDTHS = (RAGGED, SEQ_WIDTH)
+FIXED_WIDTHS = (RAGGED, SEQ_WIDTH, 2 * 2048)
 FIXED_WIDE_ARITY = 4
 FIXED_TIMED = (4, 8)
 FUZZ_ROUNDS = 16
@@ -2140,23 +2143,29 @@ def phase_hash_fixed(torch, pc, plain, hashing, field, dev) -> dict:
     """9c: hashing.hash_fixed on the card at arities 1-8 and the widths of
     FIXED_WIDTHS, arity 4 also at FILL_WIDTH, each call's K1 launches
     counted (n // 2 + 1); arities 2 and 3, which route to hash2 and hash3,
-    also through poseidon_cuda.hash_fixed's K1 sponge.  Then every result
-    against the plain version, bit for bit, and the two routes of arities
-    2 and 3 against each other."""
+    also through poseidon_cuda.hash_fixed's K1 sponge; arity
+    FIXED_WIDE_ARITY also as nodes (hashing.hash_fixed_nodes, the public
+    data tree's leaf hash).  Then every result against the plain version,
+    bit for bit, and the two routes of arities 2 and 3 against each
+    other."""
     cols = {w: fixed_columns(torch, field, w, SEED + 13 + w, dev)
             for w in FIXED_WIDTHS + (FILL_WIDTH,)}
     cases = [(n, w) for w in FIXED_WIDTHS for n in FIXED_ARITIES]
     cases.append((FIXED_WIDE_ARITY, FILL_WIDTH))
     torch.cuda.synchronize()
     start = launched()
-    outs, k1_outs = {}, {}
+    outs, k1_outs, node_outs = {}, {}, {}
     for n, w in cases:
         before = launched()
         outs[n, w] = hashing.hash_fixed(cols[w][:n])
         if n in (2, 3):
             k1_outs[n, w] = pc.hash_fixed(cols[w][:n])
+        if n == FIXED_WIDE_ARITY:
+            node_outs[w] = hashing.hash_fixed_nodes(cols[w][:n])
         got = launched(before, nonzero=True)
-        want = {"permute_n": n // 2 + 1, "hash2_nodes": int(n == 2),
+        sponges = 1 + (n == FIXED_WIDE_ARITY)
+        want = {"permute_n": sponges * (n // 2 + 1),
+                "hash2_nodes": int(n == 2),
                 "hash3_leaf": int(n == 3)}
         if {k: got.get(k, 0) for k in want} != want:
             raise AssertionError(f"hash_fixed arity {n} width {w}: launches "
@@ -2176,9 +2185,17 @@ def phase_hash_fixed(torch, pc, plain, hashing, field, dev) -> dict:
                                           torch.equal(k1_outs[n, w], want)):
             raise AssertionError(f"hash_fixed arity {n} width {w}: the "
                                  "card differs from plain")
-    print(f"phase 9c: every hash_fixed result equals the plain version's, "
-          f"max_abs_err {err} (tolerance 0, bit-exact); arities 2 and 3 "
-          "through K1 equal hash2 and hash3")
+    for w, got in node_outs.items():
+        want = plain.hash_fixed_nodes(cols[w][:FIXED_WIDE_ARITY])
+        err = max(err, max_abs_err(got, want))
+        if not torch.equal(got, want):
+            raise AssertionError(f"hash_fixed_nodes arity "
+                                 f"{FIXED_WIDE_ARITY} width {w}: the card "
+                                 "differs from plain")
+    print(f"phase 9c: every hash_fixed result, and hash_fixed_nodes at "
+          f"arity {FIXED_WIDE_ARITY} and widths {sorted(node_outs)}, equals "
+          f"the plain version's, max_abs_err {err} (tolerance 0, "
+          "bit-exact); arities 2 and 3 through K1 equal hash2 and hash3")
     return {"launches": launches, "max_abs_err": err}
 
 

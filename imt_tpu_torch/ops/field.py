@@ -232,27 +232,42 @@ def _p_words(device: str) -> torch.Tensor:
                         device=device)
 
 
+@lru_cache(maxsize=None)
+def _word_index(device: str, dims: int) -> torch.Tensor:
+    """0..7 down dim 0 of a tensor of `dims` dims (shared: read only)."""
+    return torch.arange(WORDS, device=device).view((WORDS,) + (1,) * (dims - 1))
+
+
+def _carries_in(gen: torch.Tensor, prop: torch.Tensor) -> tuple:
+    """The carries of a chain over the 8 words of dim 0, c_i = gen_i |
+    (prop_i & c_{i-1}), with no carry into word 0 and no word that both
+    generates and propagates: the carry out of word i is the `gen` of the
+    last word j <= i that does not propagate (none: no carry), found with
+    one running max, so the op count is fixed whatever the batch.  Returns
+    (the carry into each word, the carry out of word 7)."""
+    idx = _word_index(str(gen.device), gen.dim())
+    last = torch.where(prop, -1, idx).cummax(dim=0).values
+    out = torch.where(last >= 0, gen.gather(0, last.clamp(min=0)), 0)
+    pad = (0, 0) * (gen.dim() - 1) + (1, 0)
+    return torch.nn.functional.pad(out[:-1], pad), out[-1:]
+
+
 def add_mod_nodes(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """(a + b) mod p on nodes int32[8, ...] of values < p, fully reduced,
-    in two fixed carry chains over the 8 words (the sum, then the sum
-    minus p): unlike ``add_mod``'s lazy carries it never reads a value
-    back to the host, so on the card it queues without a sync."""
+    """(a + b) mod p on nodes int32[8, ...] of values < p, fully reduced:
+    the word sums and their carries, then the sum minus p and its borrows,
+    each chain resolved at once over the 8 words (``_carries_in``), so the
+    op count is small and fixed; like ``add_mod`` it is exact, and unlike
+    it it never reads a value back to the host, so on the card it queues
+    without a sync."""
     m = 0xFFFFFFFF
     s = (a.to(torch.int64) & m) + (b.to(torch.int64) & m)
-    pw = _p_words(str(a.device))
-    sums, diffs = [], []
-    carry = borrow = torch.zeros_like(s[0])
-    for i in range(WORDS):
-        t = s[i] + carry
-        carry = t >> 32
-        sums.append(t & m)
-        d = (t & m) - pw[i] - borrow
-        borrow = (d < 0).to(torch.int64)
-        diffs.append(d & m)
+    low = s & m
+    t = (low + _carries_in(s >> 32, low == m)[0]) & m
+    r = t - _p_words(str(a.device)).view((WORDS,) + (1,) * (a.dim() - 1))
+    borrow, borrow_out = _carries_in((r < 0).to(torch.int64), r == 0)
     # a + b < 2p < 2^256 leaves no carry out of word 7: the sum is >= p
     # exactly when subtracting p borrows nothing out of word 7
-    w = torch.where((borrow == 0).unsqueeze(0), torch.stack(diffs),
-                    torch.stack(sums))
+    w = torch.where(borrow_out == 0, (r - borrow) & m, t)
     return (w - ((w >> 31) << 32)).to(torch.int32)       # uint32 bits
 
 

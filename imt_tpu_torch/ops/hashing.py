@@ -73,6 +73,18 @@ def hash_fixed(cols):
     return _impl(cols[0]).hash_fixed(cols)
 
 
+def hash_fixed_nodes(cols):
+    """The sponge of ``hash_fixed`` with the hash left as nodes
+    int32[8, B]: the same n // 2 + 1 permutation launches, counted as
+    ``perm``, without the final conversion; a leaf of more than three
+    fields (arity 2 and 3 have ``hash2_nodes`` and ``hash3_leaf``)."""
+    cols = list(cols)
+    if not cols:
+        raise ValueError("hash_fixed needs at least one input")
+    _counted("perm", len(cols) // 2 + 1, cols[0].shape[-1])
+    return _impl(cols[0]).hash_fixed_nodes(cols)
+
+
 def enc_nodes(limbs):
     """Canonical limbs int32[16, B] -> nodes int32[8, B]."""
     _counted("limbs_to_nodes", 1, limbs.shape[-1])

@@ -84,6 +84,16 @@ def hash_fixed(cols) -> torch.Tensor:
     with the pad alone, added to word 1.  That is n // 2 + 1 permutations;
     arity 2 and 3 give ``hash2`` and ``hash3``.  The squeezed word is word
     1."""
+    return field.work_to_limbs(field.from_mont(_sponge_fixed(cols)))
+
+
+def hash_fixed_nodes(cols) -> torch.Tensor:
+    """``hash_fixed`` with the squeezed word as nodes int32[8, B]."""
+    return field.work_to_nodes(_sponge_fixed(cols))
+
+
+def _sponge_fixed(cols) -> torch.Tensor:
+    """The squeezed word of ``hash_fixed`` (Montgomery working limbs)."""
     if not cols:
         raise ValueError("hash_fixed needs at least one input")
     xs = [field.to_mont(field.limbs_to_work(c)) for c in cols]
@@ -96,7 +106,7 @@ def hash_fixed(cols) -> torch.Tensor:
             else st[:, 2]
         st = _permute(torch.stack(
             [st[:, 0], field.add_mod(st[:, 1], chunk[0]), w2], dim=1))
-    return field.work_to_limbs(field.from_mont(st[:, 1]))
+    return st[:, 1]
 
 
 def permute_n(st: torch.Tensor, n_perms: int = 1) -> torch.Tensor:

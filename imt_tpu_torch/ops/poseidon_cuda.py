@@ -3,11 +3,12 @@
 Counterpart of the public wrappers of ``imt_tpu/ops/poseidon_rns_pallas.py``
 (``permute_n``, ``hash2_nodes``, ``hash3_leaf``; a hash of canonical limbs
 is ``hashing.hash2`` / ``hash3``), plus the limb <-> node conversions and
-``hash_fixed`` of any arity, a sponge of ``permute_n`` launches.  Each
-wrapper takes CUDA tensors only, checks device, dtype, shape and
-contiguity, allocates its output with ``torch.empty``, launches on the
-current stream without synchronising, and raises if the launch reports an
-error.  There is no fallback: a CPU tensor raises, and the plain version
+``hash_fixed`` of any arity, a sponge of ``permute_n`` launches (nodes
+out: ``hash_fixed_nodes``).  Each wrapper takes CUDA tensors only, checks
+device, dtype, shape and contiguity, allocates its output with
+``torch.empty``, launches on the current stream without synchronising,
+and raises if the launch reports an error.  There is no fallback: a CPU
+tensor raises, and the plain version
 lives in ``poseidon.py``.  Each launch adds one to the tracer's counter
 ``cuda.<entry point>``, so a run can show which kernels it reached, and a
 hash launch that the library runs on its cooperative kernel (several
@@ -179,8 +180,15 @@ def hash_fixed(cols) -> torch.Tensor:
     with each permutation one K1 launch (``permute_n(st, 1)``): n // 2 + 1
     launches, between them the absorption of the next chunk, a mod-p
     addition of node words in plain torch ops (``field.add_mod_nodes``, as
-    XLA did it for the TPU), which keeps every word below p as K1 requires.
+    XLA did it for the TPU; one call a chunk, its words side by side),
+    which keeps every word below p as K1 requires.
     No host sync."""
+    return nodes_to_limbs(hash_fixed_nodes(cols))
+
+
+def hash_fixed_nodes(cols) -> torch.Tensor:
+    """``hash_fixed`` with the squeezed word left as nodes int32[8, B]
+    (contiguous): the same K1 launches, without the final conversion."""
     if not cols:
         raise ValueError("hash_fixed needs at least one input")
     b = _check("hash_fixed", cols, (LIMBS,))
@@ -188,8 +196,9 @@ def hash_fixed(cols) -> torch.Tensor:
     seq = [limbs_to_nodes(c) for c in cols] + [one.expand(WORDS, b)]
     st = permute_n(torch.stack([iv.expand(WORDS, b), seq[0], seq[1]]), 1)
     for k in range(2, len(seq), 2):
-        chunk = seq[k:k + 2]
-        w2 = add_mod_nodes(st[2], chunk[1]) if len(chunk) == 2 else st[2]
-        st = permute_n(torch.stack([st[0], add_mod_nodes(st[1], chunk[0]),
-                                    w2]), 1)
-    return nodes_to_limbs(st[1])
+        chunk = seq[k:k + 2]                  # words 1.. absorb the chunk
+        w = 1 + len(chunk)
+        add = add_mod_nodes(st[1:w].transpose(0, 1),
+                            torch.stack(chunk, dim=1)).transpose(0, 1)
+        st = permute_n(torch.cat([st[:1], add, st[w:]]), 1)
+    return st[1]

@@ -464,6 +464,20 @@ def _link_batch(vals, nvs, nis, new_vals, sort, slab_start: int, n: int,
     return prev_slot, ok
 
 
+def _hash_dirty(cols, low_idx: torch.Tensor, slab_start: int, k: int,
+                leaf_hash):
+    """The dirty leaves of a batch, each state column of `cols` in preimage
+    order: the K low leaves `low_idx` (a rejected lane rehashes an
+    unchanged leaf) and the contiguous new-slot slab, in ONE width-2K call
+    of `leaf_hash` (limbs in, nodes out), the span ``leaf_hash``.  Returns
+    (low_hash [8, K], slab_hash [8, K])."""
+    with span("leaf_hash"):
+        hashes = leaf_hash(*[
+            torch.cat([x[:, low_idx], _dynamic_slice(x, slab_start, k)],
+                      dim=1) for x in cols])
+    return hashes[:, :k].contiguous(), hashes[:, k:].contiguous()
+
+
 def _plan_batch(vals, nvs, nis, new_vals, count: int, n: int, k: int):
     """The batched-insert planner (``imt_tpu`` ``_plan_batch``): sort every
     existing slot and new value by (value, slot), accept each entry that
@@ -478,35 +492,32 @@ def _plan_batch(vals, nvs, nis, new_vals, count: int, n: int, k: int):
     with span("link"):
         low_idx, ok = _link_batch(vals, nvs, nis, new_vals, sort, slab_start,
                                   n, k)
-    # dirty leaves: the K low leaves (rejected lanes rehash an unchanged
-    # leaf) and the contiguous new-slot slab, in ONE width-2K hash3
-    with span("leaf_hash"):
-        hashes = hashing.hash3_leaf(*[
-            torch.cat([x[:, low_idx], _dynamic_slice(x, slab_start, k)],
-                      dim=1) for x in (vals, nvs, nis)])
-    return (low_idx, hashes[:, :k].contiguous(), slab_start,
-            hashes[:, k:].contiguous(), ok)
+    low_hash, slab_hash = _hash_dirty((vals, nvs, nis), low_idx, slab_start,
+                                      k, hashing.hash3_leaf)
+    return low_idx, low_hash, slab_start, slab_hash, ok
 
 
 @lru_cache(maxsize=None)
-def _zero_level_roots(depth: int) -> tuple[int, ...]:
-    """Node value per level of an all-empty tree: h_0 = H(0,0,0),
+def _zero_level_roots(depth: int,
+                      zero_leaf: int = ZERO_LEAF_HASH) -> tuple[int, ...]:
+    """Node value per level of an all-empty tree whose empty leaf hashes
+    to `zero_leaf` (H(0,0,0) for a nullifier tree): h_0 = zero_leaf,
     h_{d+1} = H2(h_d, h_d), with the python-int oracle."""
     from ..ops.poseidon_spec import default_params
     from ..ops.poseidon_ref import hash_fixed
     params = default_params()
-    h = [ZERO_LEAF_HASH]
+    h = [zero_leaf]
     for _ in range(depth):
         h.append(hash_fixed([h[-1], h[-1]], params))
     return tuple(h)
 
 
-def _zero_levels(depth: int, device) -> list:
+def _zero_levels(depth: int, device, zero_leaf: int = ZERO_LEAF_HASH) -> list:
     """All-empty tree levels as nodes, each materialised on `device` (the
     levels are updated in place, so no level may be a broadcast view)."""
     n = 1 << depth
     levels = []
-    for d, h in enumerate(_zero_level_roots(depth)):
+    for d, h in enumerate(_zero_level_roots(depth, zero_leaf)):
         col = torch.as_tensor(field.int_to_node(h), device=device)[:, None]
         levels.append(col.expand(field.WORDS, n >> d).contiguous())
     return levels
@@ -528,27 +539,28 @@ def _build_levels(leaves: torch.Tensor, depth: int) -> list:
 # ---------------------------------------------------------------------------
 
 @lru_cache(maxsize=None)
-def _zero_sib_nodes(depth: int, full_depth: int,
-                    device: torch.device) -> torch.Tensor:
+def _zero_sib_nodes(depth: int, full_depth: int, device: torch.device,
+                    zero_leaf: int = ZERO_LEAF_HASH) -> torch.Tensor:
     """Zero-subtree hash of each level d in [depth, full_depth) as nodes
     [full_depth - depth, 8, 1] on `device` (shared: read only)."""
-    roots = _zero_level_roots(full_depth)
+    roots = _zero_level_roots(full_depth, zero_leaf)
     nodes = np.zeros((full_depth - depth, field.WORDS), dtype=np.int32)
     for i, d in enumerate(range(depth, full_depth)):
         nodes[i] = field.int_to_node(roots[d])
     return torch.as_tensor(nodes, device=device)[:, :, None]
 
 
-def _spine_fold(root: torch.Tensor, depth: int,
-                full_depth: int) -> torch.Tensor:
+def _spine_fold(root: torch.Tensor, depth: int, full_depth: int,
+                zero_leaf: int = ZERO_LEAF_HASH) -> torch.Tensor:
     """Active-prefix roots, nodes [8, K] (a series of roots or one) ->
     full-depth roots [8, K]: one hash2 launch per level above the prefix,
-    with the zero-subtree hash of the level, made contiguous, as the right
-    child.  The fold is the span ``spine`` and counts ``spine.launches``
-    (one a level) and ``spine.lanes`` (K a level); an empty spine (a dense
-    tree) opens and counts nothing."""
+    with the zero-subtree hash of the level (over empty leaves hashing to
+    `zero_leaf`), made contiguous, as the right child.  The fold is the
+    span ``spine`` and counts ``spine.launches`` (one a level) and
+    ``spine.lanes`` (K a level); an empty spine (a dense tree) opens and
+    counts nothing."""
     root = root.contiguous()
-    sibs = _zero_sib_nodes(depth, full_depth, root.device)
+    sibs = _zero_sib_nodes(depth, full_depth, root.device, zero_leaf)
     if not len(sibs):
         return root
     with span("spine"):
@@ -560,21 +572,21 @@ def _spine_fold(root: torch.Tensor, depth: int,
 
 
 def _extend_proof(proof: torch.Tensor, helpers: torch.Tensor, depth: int,
-                  full_depth: int):
+                  full_depth: int, zero_leaf: int = ZERO_LEAF_HASH):
     """Active-depth sibling paths, nodes [depth, 8, K] and helpers
     [depth, K] -> full-depth ones: the zero-subtree hashes above, helper
     1."""
     ext, k = full_depth - depth, proof.shape[-1]
     if not ext:
         return proof, helpers
-    sibs = _zero_sib_nodes(depth, full_depth, proof.device)
+    sibs = _zero_sib_nodes(depth, full_depth, proof.device, zero_leaf)
     return (torch.cat([proof, sibs.expand(ext, field.WORDS, k)]),
             torch.cat([helpers, torch.ones((ext, k), dtype=helpers.dtype,
                                            device=helpers.device)]))
 
 
 def _beyond_prefix_proof(prefix_root: torch.Tensor, index: int, depth: int,
-                         full_depth: int):
+                         full_depth: int, zero_leaf: int = ZERO_LEAF_HASH):
     """Sibling path of a slot `index` >= 2^depth of a depth-`full_depth`
     tree whose active prefix of depth `depth` has the root node
     `prefix_root` [8, 1]: nodes [full_depth, 8, 1] and helpers
@@ -584,9 +596,9 @@ def _beyond_prefix_proof(prefix_root: torch.Tensor, index: int, depth: int,
     spine) where the index's sibling node is node 0, and a zero-subtree
     root elsewhere."""
     dev = prefix_root.device
-    sibs = list(_zero_sib_nodes(0, full_depth, dev))
+    sibs = list(_zero_sib_nodes(0, full_depth, dev, zero_leaf))
     top = index.bit_length() - 1          # the level whose sibling is node 0
-    sibs[top] = _spine_fold(prefix_root, depth, top)
+    sibs[top] = _spine_fold(prefix_root, depth, top, zero_leaf)
     helpers = torch.tensor([[((index >> d) & 1) == 0]
                             for d in range(full_depth)],
                            dtype=torch.int32, device=dev)
@@ -911,7 +923,17 @@ class IndexedMerkleTree:
     search and the non-inclusion sort look at ``[0, _live)`` only; it is
     exact, since such slots can never be a low leaf.  ``levels`` cover the
     active prefix of ``active_depth`` levels (all of them here;
-    ``SparseIndexedMerkleTree`` holds fewer)."""
+    ``SparseIndexedMerkleTree`` holds fewer).
+
+    The leaf kind is three class attributes, which a tree of another leaf
+    (``public_data.PublicDataTree``) overrides together with ``_plan``:
+    ``COLUMNS``, the state columns in the leaf's preimage order (each
+    int32[16, slots], named as ``to_arrays`` names it); ``zero_leaf``, the
+    hash of an empty leaf, which the all-empty levels and the zero spine
+    are built from; and ``_hash_leaves``, the leaf hash."""
+
+    COLUMNS = ("vals", "next_vals", "next_idxs")
+    zero_leaf = ZERO_LEAF_HASH
 
     def __init__(self, depth: int, device="cuda"):
         self._setup(depth, device)
@@ -929,10 +951,20 @@ class IndexedMerkleTree:
         self._walk_graphs = WalkGraphs()
 
     def _alloc(self, active_depth: int) -> None:
-        z = lambda: torch.zeros((field.LIMBS, 1 << active_depth),
-                                dtype=torch.int32, device=self.device)
-        self.vals, self.next_vals, self.next_idxs = z(), z(), z()
-        self.levels = _zero_levels(active_depth, self.device)
+        for name in self.COLUMNS:
+            setattr(self, name, torch.zeros(
+                (field.LIMBS, 1 << active_depth), dtype=torch.int32,
+                device=self.device))
+        self.levels = _zero_levels(active_depth, self.device, self.zero_leaf)
+
+    def _columns(self) -> tuple:
+        """The state columns, in the leaf's preimage order."""
+        return tuple(getattr(self, name) for name in self.COLUMNS)
+
+    @staticmethod
+    def _hash_leaves(*cols) -> torch.Tensor:
+        """Leaf nodes [8, B] of state columns [16, B] in preimage order."""
+        return hashing.hash3_leaf(*cols)
 
     @property
     def active_depth(self) -> int:
@@ -954,7 +986,8 @@ class IndexedMerkleTree:
     def get_root(self) -> torch.Tensor:
         """Root as canonical limbs int32[16, 1]."""
         return hashing.dec_nodes(_spine_fold(
-            self.levels[-1], self.active_depth, self.tree_depth))
+            self.levels[-1], self.active_depth, self.tree_depth,
+            self.zero_leaf))
 
     def get_root_int(self) -> int:
         with span("get_root"):
@@ -975,11 +1008,11 @@ class IndexedMerkleTree:
                              f"{self.num_slots} slots")
         if index >> ad:
             proof, helpers = _beyond_prefix_proof(
-                self.levels[-1], index, ad, self.tree_depth)
+                self.levels[-1], index, ad, self.tree_depth, self.zero_leaf)
             return _dec_path(proof), helpers
         idx = torch.full((1,), index, dtype=torch.int64, device=self.device)
         proof, helpers = _extend_proof(*_gather_proof(self.levels, idx, ad),
-                                       ad, self.tree_depth)
+                                       ad, self.tree_depth, self.zero_leaf)
         return _dec_path(proof), helpers
 
     def verify_proof(self, leaf, index: int, root, proof) -> bool:
@@ -1100,21 +1133,28 @@ class IndexedMerkleTree:
             self._reserve(arr.shape[0] * arr.shape[2])
             return self._accepted(self._insert_chain(arr), as_numpy)
 
+    def _plan(self, batch: torch.Tensor, n: int, k: int):
+        """One staged batch planned (``_plan_batch``): the state written
+        IN PLACE and its 2K dirty leaves hashed.  Returns (low_idx,
+        low_hash, slab_start, slab_hash, each lane's result)."""
+        return _plan_batch(self.vals, self.next_vals, self.next_idxs, batch,
+                           self.count, n, k)
+
     def _insert_chain(self, arr: torch.Tensor) -> torch.Tensor:
-        """The batched insert of the staged batches `arr` [B, 16, K], room
-        reserved: each batch is planned (``_plan_batch``) and updates the
-        levels up to the crossover (``_crossover``, the span ``paths``);
-        the levels above it, which a batch would rebuild whole, are rebuilt
-        once, after the last batch (the span ``rebuild``).  Returns ok
-        bool[B, K] on the device."""
-        _, _, k = arr.shape
+        """The batched insert of the staged batches `arr` [B, ..., K], room
+        reserved: each batch is planned by the tree's own planner
+        (``_plan``) and updates the levels up to the crossover
+        (``_crossover``, the span ``paths``); the levels above it, which a
+        batch would rebuild whole, are rebuilt once, after the last batch
+        (the span ``rebuild``).  Returns the planner's results [B, K] on
+        the device (ok bool[B, K] here)."""
+        k = arr.shape[-1]
         ad, n = self.active_depth, self.vals.shape[1]
         cross = _crossover(ad, k)
         oks = []
-        for new_vals in arr:
-            low_idx, low_hash, slab_start, slab_hash, ok = _plan_batch(
-                self.vals, self.next_vals, self.next_idxs, new_vals,
-                self.count, n, k)
+        for batch in arr:
+            low_idx, low_hash, slab_start, slab_hash, ok = self._plan(
+                batch, n, k)
             with span("paths"):
                 _update_paths_batch(self.levels, low_idx, low_hash,
                                     slab_start, slab_hash, cross)
@@ -1130,13 +1170,9 @@ class IndexedMerkleTree:
     def to_arrays(self) -> dict:
         """The same dict as ``imt_tpu``'s ``to_arrays`` (uint32 limbs)."""
         host = lambda x: x.cpu().numpy().astype(np.uint32)
-        return {
-            "depth": np.int64(self.tree_depth),
-            "count": np.int64(self.count),
-            "vals": host(self.vals),
-            "next_vals": host(self.next_vals),
-            "next_idxs": host(self.next_idxs),
-        }
+        return {"depth": np.int64(self.tree_depth),
+                "count": np.int64(self.count),
+                **{name: host(getattr(self, name)) for name in self.COLUMNS}}
 
     @classmethod
     def from_arrays(cls, arrays: dict, device="cuda") -> "IndexedMerkleTree":
@@ -1157,11 +1193,9 @@ class IndexedMerkleTree:
         self.count = int(arrays["count"])
         nonzero = np.flatnonzero(vals.any(axis=0))
         self._live = int(nonzero[-1]) + 1 if nonzero.size else 1
-        dev = lambda a: torch.as_tensor(
-            np.ascontiguousarray(a, dtype=np.int64).astype(np.int32),
-            device=self.device)
-        self.vals = dev(vals)
-        self.next_vals = dev(arrays["next_vals"])
-        self.next_idxs = dev(arrays["next_idxs"])
-        leaves = hashing.hash3_leaf(self.vals, self.next_vals, self.next_idxs)
-        self.levels = _build_levels(leaves, active_depth)
+        for name in self.COLUMNS:
+            setattr(self, name, torch.as_tensor(np.ascontiguousarray(
+                arrays[name], dtype=np.int64).astype(np.int32),
+                device=self.device))
+        self.levels = _build_levels(self._hash_leaves(*self._columns()),
+                                    active_depth)

@@ -11,10 +11,10 @@ method is the dense tree's, run on the active prefix, so a
 ``SparseIndexedMerkleTree(depth)`` gives the same roots, masks and
 witnesses as an ``IndexedMerkleTree(depth)`` fed the same values.
 
-Growth rehashes the active leaves once per growth (one hash3 launch of
-width 2^ad and one rebuild of the levels): O(1) hashes per insert,
-amortised.  A growth is the tracer's span ``grow`` and counts
-``sparse.grows``.
+Growth rehashes the active leaves once per growth (the tree's leaf hash,
+hash3 for a nullifier tree, at width 2^ad, and one rebuild of the
+levels): O(1) hashes per insert, amortised.  A growth is the tracer's
+span ``grow`` and counts ``sparse.grows``.
 """
 
 from __future__ import annotations
@@ -22,7 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops import field, hashing
+from ..ops import field
 from ..utils.observability import count, log_event, span
 from .indexed import IndexedMerkleTree, _build_levels
 
@@ -52,14 +52,12 @@ class SparseIndexedMerkleTree(IndexedMerkleTree):
         if ad == self.active_depth:
             return
         pad = (1 << ad) - self.vals.shape[1]
-        grow = lambda x: torch.cat([x, x.new_zeros((field.LIMBS, pad))],
-                                   dim=1)
         with span("grow"):
-            self.vals, self.next_vals, self.next_idxs = (
-                grow(self.vals), grow(self.next_vals), grow(self.next_idxs))
-            leaves = hashing.hash3_leaf(self.vals, self.next_vals,
-                                        self.next_idxs)
-            self.levels = _build_levels(leaves, ad)
+            for name, x in zip(self.COLUMNS, self._columns()):
+                setattr(self, name, torch.cat(
+                    [x, x.new_zeros((field.LIMBS, pad))], dim=1))
+            self.levels = _build_levels(self._hash_leaves(*self._columns()),
+                                        ad)
         count("sparse.grows")
         log_event("sparse_grow", active_depth=ad, slots=1 << ad)
 

@@ -60,10 +60,17 @@ def load(path: str, device=None, mesh=None):
     caller asks for "cpu"): a ``ShardedIndexedMerkleTree`` for a snapshot
     with the ``sharded`` marker or when `mesh` is given (every rank of the
     mesh calls load; the tree's device defaults to the rank's own card),
-    else a ``SparseIndexedMerkleTree`` for one with the ``sparse`` marker,
-    else an ``IndexedMerkleTree``."""
+    else a ``PublicDataTree`` for one with ``leaf_values``, a
+    ``SparseIndexedMerkleTree`` for one with the ``sparse`` marker, else an
+    ``IndexedMerkleTree``."""
     with np.load(path) as z:
         arrays = {k: z[k] for k in z.files}
+    if "leaf_values" in arrays:
+        if mesh is not None or int(arrays.get("sharded", 0)):
+            raise ValueError("a public data tree is never sharded")
+        from ..tree.public_data import PublicDataTree
+        return PublicDataTree.from_arrays(
+            arrays, device="cuda" if device is None else device)
     if mesh is not None or int(arrays.get("sharded", 0)):
         from ..parallel.sharded import ShardedIndexedMerkleTree
         return ShardedIndexedMerkleTree.from_arrays(arrays, mesh=mesh,

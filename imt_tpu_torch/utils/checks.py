@@ -29,11 +29,12 @@ def set_semantics(stream: np.ndarray) -> np.ndarray:
 
 
 def rebuild_root(tree) -> int:
-    """The full-depth root of `tree` (an ``IndexedMerkleTree`` or a sparse
-    one) rebuilt from its leaf state alone: its active prefix hashed from
-    the leaves up, then folded over the zero spine."""
-    leaves = hashing.hash3_leaf(tree.vals, tree.next_vals, tree.next_idxs)
+    """The full-depth root of `tree` (an ``IndexedMerkleTree`` or a tree
+    derived from it) rebuilt from its leaf state alone: its active prefix
+    hashed from the leaves up by the tree's own leaf hash, then folded over
+    the zero spine of its own empty leaf."""
+    leaves = tree._hash_leaves(*tree._columns())
     ad = tree.active_depth
     top = indexed._build_levels(leaves, ad)[-1]
-    root = indexed._spine_fold(top, ad, tree.tree_depth)
+    root = indexed._spine_fold(top, ad, tree.tree_depth, tree.zero_leaf)
     return field.limbs_to_int(hashing.dec_nodes(root)[:, 0].cpu())

@@ -132,13 +132,28 @@ def test_card_sponge_with_plain_kernels(arity, monkeypatch):
 
 def test_node_addition_stays_below_p():
     """field.add_mod_nodes, the absorption between K1 launches, against
-    python ints at the edges (p - 1 + p - 1, sums at and around p) and
-    bit for bit against add_mod's."""
+    python ints at the edges (p - 1 + p - 1, sums at and around p, carry
+    chains through 1 to 7 words of ones, sums equal to p, a borrow chain
+    through every word of p) and bit for bit against add_mod's, on [8, B]
+    and, word for word the same sums, on [8, 2, B]."""
     rng = random.Random(9)
     xs = [0, 1, P - 1, P - 1, P - 2, 2 ** 253] + [rng.randrange(P)
                                                   for _ in range(10)]
     ys = [0, P - 1, 1, P - 1, 1, 2 ** 253] + [rng.randrange(P)
                                               for _ in range(10)]
+    # the chains are of the node words, which hold x R mod p: pick them
+    # there and add their values, x = words / R mod p
+    wx, wy = [], []
+    for w in range(1, 8):                   # carries through w words
+        wx += [2 ** (32 * w) - 1, 2 ** (32 * w) - 2, P - 2 ** (32 * w)]
+        wy += [1, 2, 2 ** (32 * w) - 1]
+    for x in [2 ** 224 - 1, P >> 1, 2 ** 32] + [rng.randrange(1, P)
+                                                 for _ in range(4)]:
+        wx += [x, x]                        # sums equal to p and p - 1
+        wy += [P - x, P - x - 1]
+    r_inv = pow(field.R, -1, P)
+    xs += [v * r_inv % P for v in wx]
+    ys += [v * r_inv % P for v in wy]
     node = lambda vs: torch.as_tensor(
         np.stack([field.int_to_node(v) for v in vs], axis=1))
     a, b = node(xs), node(ys)
@@ -148,3 +163,7 @@ def test_node_addition_stays_below_p():
     want = field.work_to_nodes(field.add_mod(field.nodes_to_work(a),
                                              field.nodes_to_work(b)))
     assert torch.equal(got, want)
+    half = len(xs) // 2
+    got3 = field.add_mod_nodes(a[:, :2 * half].reshape(8, 2, half),
+                               b[:, :2 * half].reshape(8, 2, half))
+    assert torch.equal(got3, got[:, :2 * half].reshape(8, 2, half))
